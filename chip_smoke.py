@@ -8,20 +8,40 @@ Phases, each ending with a line of its wall time (phase_s):
      build of the CUDA kernels from tsalign_tpu_torch/csrc;
   2. each kernel against its plain torch version on the card (torch.equal,
      tolerance 0) on seeded inputs holding DEV_INF and DEV_INF - 1, timed
-     with CUDA events;
-  3. three small planted-TSM pairs: the port's cost equals the Dijkstra
-     oracle's (tsalign_tpu.oracle);
-  4. the fixture pairs of tests/fixtures/torch_port_pairs.json: cost and CIGAR
-     equal the JAX package's (recorded on the CPU);
-  5. the main path at a real size: a seeded 500 x 420 pair under the default
-     configuration through tsalign_tpu_torch.align(..., device="cuda"); both
-     kernels must launch, and the alignment must reprice to the cost; then
-     both kernels against their plain versions at the shapes that path
-     launches: the root sweep, and two chunks of every cross kind in both
-     directions.
+     with CUDA events; the flanked sweep for six (L, R, climb) settings and
+     in both seed layouts;
+  3. three small planted-TSM pairs under the default configuration and three
+     under the flanked default: the port's cost equals the Dijkstra oracle's
+     (tsalign_tpu_torch.oracle);
+  4. the fixture pairs of tests/fixtures/torch_port_pairs.json (default
+     configuration) and torch_port_flanked_pairs.json (flanked default): cost
+     and CIGAR equal the JAX package's (recorded on the CPU);
+  5. the flankless main path at a real size: a seeded 500 x 420 pair under
+     the default configuration through tsalign_tpu_torch.align(...,
+     device="cuda"); the flankless sweep and the module scan must launch, and
+     the alignment must reprice to the cost; then both kernels against their
+     plain versions at the shapes that path launches: the root sweep, and two
+     chunks of every cross kind in both directions;
+  6. the flanked main path: the same pair with a substitution on either side
+     of the planted stretch, under the flanked default (two flank layers on
+     either side, F = 5, cheaper flank tables), through
+     tsalign_tpu_torch.Aligner(costs=cfg, device="cuda").align(r, q); the
+     flanked sweep and the module scan must launch and the flankless sweep
+     must not, the alignment must reprice to the cost (with its flank labels
+     restored, see `with_flank_labels`) and hold a flank operation; then the flanked sweep against its plain version at that
+     path's shapes (the root seeds and a later round's seeds).
 Any failure raises, so the script exits nonzero before its last line.  The
 last lines are the kernels' JSON record, the card's name and power limit,
 and {"ok": true, "device": {...}}.
+
+In the kernels' record, bound_ms is the least time the card could take for
+the compared call: the larger of its bytes (every input read once, the
+output written once) over 3.35 TB/s and its integer operations over
+16.75e12 a second.  That integer rate is the H100's float32 peak outside
+the tensor cores (67 TFLOP/s: 132 SMs x 128 lanes x 2 operations a fused
+multiply-add) cut to the 64 int32 lanes an SM has, each doing one
+operation a clock.  library_ms is null: no single PyTorch call computes a (min,+)
+wavefront or the module scan.
 """
 
 from __future__ import annotations
@@ -35,28 +55,43 @@ import time
 import numpy as np
 import torch
 
-# Python puts this script's directory first on sys.path, so both packages
-# import from the checkout it sits in (and fail where it sits alone).
+# Python puts this script's directory first on sys.path, so the package
+# imports from the checkout it sits in (and fails where it sits alone).
 import tsalign_tpu_torch
-from tsalign_tpu.alphabet import get_alphabet
-from tsalign_tpu.config import TemplateSwitchConfig
-from tsalign_tpu.oracle import OracleAligner
-from tsalign_tpu.pricing import price_alignment
 from tsalign_tpu_torch import _build
-from tsalign_tpu_torch.engine import TorchAligner
+from tsalign_tpu_torch.alignment import Alignment, TemplateSwitchEntrance, TemplateSwitchExit
+from tsalign_tpu_torch.alphabet import get_alphabet
+from tsalign_tpu_torch.config import TemplateSwitchConfig
+from tsalign_tpu_torch.costs import GapAffineCostTable
+from tsalign_tpu_torch.engine import TorchAligner, next_seeds
 from tsalign_tpu_torch.ops.common import DEV_INF, sat_add
 from tsalign_tpu_torch.ops.module_scan import module_scan
 from tsalign_tpu_torch.ops.modules import module_scan_torch
-from tsalign_tpu_torch.ops.sweep import sweep_flankless, sweep_flankless_torch
+from tsalign_tpu_torch.ops.sweep import (sweep_flanked, sweep_flanked_torch, sweep_flankless,
+                                         sweep_flankless_torch)
+from tsalign_tpu_torch.oracle import OracleAligner
+from tsalign_tpu_torch.pricing import price_alignment
 
 DEV = "cuda"
-FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                       "tests", "fixtures", "torch_port_pairs.json")
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
+FIXTURE = os.path.join(FIXTURES, "torch_port_pairs.json")
+FLANKED_FIXTURE = os.path.join(FIXTURES, "torch_port_flanked_pairs.json")
+# (name, seed, reference length, planted reverse-complement length, SNPs) of
+# the flanked fixture's pairs; each also gets the two flank substitutions.
+FLANKED_FIXTURE_PAIRS = (("flanked_60", 1060, 60, 12, 2), ("flanked_90", 1090, 90, 16, 2),
+                         ("flanked_120", 1120, 120, 20, 3))
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
 KERNELS = {
     "sweep_flankless": {
         "route": "cuda",
         "source": "tsalign_tpu_torch/csrc/sweep_flankless.cu",
         "replaces": "tsalign_tpu/ops/pallas_sweep.py:238",
+    },
+    "sweep_flanked": {
+        "route": "cuda",
+        "source": "tsalign_tpu_torch/csrc/sweep_flanked.cu",
+        "replaces": "tsalign_tpu/ops/pallas_sweep.py:392",
     },
     "module_scan": {
         "route": "cuda",
@@ -93,6 +128,29 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def under_load(fn):
+    """fn() while nvidia-smi samples the card every 100 ms; returns fn's
+    result and the SM clock (MHz, least and median), power draw (W, most) and
+    temperature (C, most) over the samples.  Two cards of one name and power
+    limit can run a throughput-bound kernel at different clocks."""
+    sampler = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        sampler.terminate()
+        lines = sampler.communicate()[0].strip().splitlines()
+    rows = [[float(x) for x in line.split(",")] for line in lines if line.count(",") == 2]
+    if not rows:
+        return out, {}
+    mhz = sorted(r[0] for r in rows)
+    return out, dict(samples=len(rows), sm_mhz_min=mhz[0], sm_mhz_median=mhz[len(mhz) // 2],
+                     power_w_max=max(r[1] for r in rows), temp_c_max=max(r[2] for r in rows))
+
+
 def compare(name, got, want, what):
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -120,6 +178,63 @@ def sweep_inputs(gen, n_rows, Wq):
     io = rand_costs(gen, (Wq,), 0, 6, 0.02)
     ie = rand_costs(gen, (Wq,), 0, 3, 0.02)
     return sub, dd, seeds, io, ie
+
+
+def flanked_sweep_inputs(gen, n_rows, Wq, F):
+    subs = rand_costs(gen, (3, n_rows, Wq), 0, 7, 0.02, 0.02)
+    subs[:, 0] = DEV_INF
+    dd = rand_costs(gen, (n_rows, 6), 0, 6, 0.02)
+    seeds = rand_costs(gen, (n_rows, 3 * F, Wq), 0, 60, 0.9, 0.05)
+    io = rand_costs(gen, (3, Wq), 0, 6, 0.02)
+    ie = rand_costs(gen, (3, Wq), 0, 3, 0.02)
+    return subs, dd, seeds, io, ie
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, n_ops: int):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    integer operations over the int32 rate (see the module docstring)."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / INT32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+# Integer operations (add or min) a cell needs, counted from the recurrences:
+# none 5 (min3, add, clamp, min with the seed), del 7 (open min, two clamped
+# adds, two mins, the seed), ins 7 (open min, clamped add, seed min, the
+# chain's add, clamp and min).  A climbing flank layer takes the same 5 + 7
+# for none and del and 7 for its one-step insertion.
+SWEEP_OPS_PER_CELL = 19
+# Module scan, per (entry row, column, offset) and level: close 6 (open min,
+# clamped add, the chain's add, clamp and min) when secondary deletions are
+# on, emit 3, step 12 (LUT add and clamp, min3, the insertion's six, the
+# diagonal's clamped add).
+SCAN_CLOSE_OPS, SCAN_EMIT_OPS, SCAN_STEP_OPS = 6, 3, 12
+
+
+def sweep_flankless_bound(sub_rows, dd, seeds, io, ie):
+    cells = sub_rows.shape[0] * sub_rows.shape[1]
+    return bound(nbytes(sub_rows, dd, seeds, io, ie) + nbytes(seeds),
+                 cells * SWEEP_OPS_PER_CELL)
+
+
+def sweep_flanked_bound(subs, dd, seeds, io, ie, *, L, R, climb):
+    cells = subs.shape[1] * subs.shape[2]
+    climbing = R + (L if climb else 0)
+    return bound(nbytes(subs, dd, seeds, io, ie) + nbytes(seeds),
+                 cells * SWEEP_OPS_PER_CELL * (1 + climbing))
+
+
+def module_scan_bound(seedT, lut, sdo, sde, pchar, pmask, io, ie, *, allow_sdel):
+    NB, C, W = seedT.shape
+    L = pchar.shape[0]
+    close_emit = (SCAN_CLOSE_OPS if allow_sdel else 0) + SCAN_EMIT_OPS
+    ops = NB * C * W * (L * (close_emit + SCAN_STEP_OPS) + close_emit)
+    out_bytes = 4 * (L + 1) * NB * C
+    return bound(nbytes(seedT, lut, sdo, sde, pchar, pmask, io, ie) + out_bytes, ops)
 
 
 def module_inputs(gen, NB, C, W, L, A=6):
@@ -155,6 +270,24 @@ def phase2():
         say(2, kernel="sweep_flankless", n_rows=n_rows, Wq=Wq, equal=True,
             ms=cuda_ms(lambda: sweep_flankless(*args), 10),
             plain_ms=cuda_ms(lambda: sweep_flankless_torch(*args), 1))
+    for L, R, climb in ((0, 1, True), (1, 0, True), (1, 0, False), (2, 2, True),
+                        (2, 2, False), (5, 5, True)):
+        for n_rows, Wq in ((17, 1), (40, 33), (120, 513), (60, 2100)):
+            subs, dd, seeds, io, ie = flanked_sweep_inputs(gen, n_rows, Wq, L + R + 1)
+            kw = dict(L=L, R=R, climb=climb)
+            want = sweep_flanked_torch(subs, dd, seeds, io, ie, **kw)
+            what = f"L={L} R={R} climb={climb} n_rows={n_rows} Wq={Wq}"
+            compare("sweep_flanked", sweep_flanked(subs, dd, seeds, io, ie, **kw), want, what)
+            # the engine's plane-major layout, read and written in place
+            planes = seeds.permute(1, 0, 2).contiguous().permute(1, 0, 2)
+            got = sweep_flanked(subs, dd, planes, io, ie, **kw)
+            if got.stride() != planes.stride():
+                raise AssertionError(f"sweep_flanked {what}: plane-major seeds gave another layout")
+            compare("sweep_flanked", got.contiguous(), want, what + " plane-major")
+            say(2, kernel="sweep_flanked", L=L, R=R, climb=climb, n_rows=n_rows, Wq=Wq,
+                equal=True,
+                ms=cuda_ms(lambda: sweep_flanked(subs, dd, seeds, io, ie, **kw), 10),
+                plain_ms=cuda_ms(lambda: sweep_flanked_torch(subs, dd, seeds, io, ie, **kw), 1))
     for fwd in (True, False):
         for sdel in (True, False):
             for C in (8, 64):
@@ -170,10 +303,11 @@ def phase2():
                         plain_ms=cuda_ms(lambda: module_scan_torch(*args, **kw), 1))
 
 
-def planted_pair(rng, n, ts_len, snps, indel, q_len=None):
+def planted_pair(rng, n, ts_len, snps, indel, q_len=None, flank_snps=False):
     """Random reference; the query copies its first `q_len` bases (all by
     default) with `snps` substitutions, an optional 1-bp deletion, and one
-    planted reverse-complement stretch."""
+    planted reverse-complement stretch; with `flank_snps` also a substitution
+    in the base before that stretch and in the base after it."""
     al = get_alphabet("dna")
     ref = rng.integers(0, 4, size=n).astype(np.int8)
     qry = list(ref)
@@ -183,38 +317,119 @@ def planted_pair(rng, n, ts_len, snps, indel, q_len=None):
     a = int(rng.integers(4, (q_len or n) - ts_len - 4))
     comp = al.complement_array()
     qry[a : a + ts_len] = [int(comp[c]) for c in qry[a : a + ts_len]][::-1]
+    if flank_snps:
+        for k in (a - 1, a + ts_len):
+            qry[k] = (qry[k] + 1) % 4
     if indel:
         del qry[int(rng.integers(0, len(qry)))]
     qry = qry[:q_len]
     return al.decode(ref), al.decode(np.array(qry, dtype=np.int8))
 
 
+def flanked_default(al) -> TemplateSwitchConfig:
+    """The default configuration with two flank layers on either side
+    (F = 5) and flank tables cheaper than the primary one (match 0,
+    substitution 1, gap open 2, gap extend 1 against 0 / 2 / 3 / 1), so that
+    the flank layers change the optimum."""
+    cfg = TemplateSwitchConfig.default(al)
+    cfg.left_flank_length = cfg.right_flank_length = 2
+    cfg.left_flank_edit_costs = GapAffineCostTable.base_agnostic(
+        "Left Flank Edit Costs", al, 0, 1, 2, 1)
+    cfg.right_flank_edit_costs = GapAffineCostTable.base_agnostic(
+        "Right Flank Edit Costs", al, 0, 1, 2, 1)
+    return cfg
+
+
+def with_flank_labels(alignment, L, R, trailing):
+    """The alignment one operation an entry, with the flank labels restored.
+
+    The record's run-length merge rule puts a flank operation and the
+    primary operation of the same kind into one run under one label, so a
+    record of a flanked config does not reprice as it stands.  The model
+    fixes where the flank operations are: the R operations after a
+    template-switch exit (flank -R up to 0), the L operations before an
+    entrance (flank 0 up to L), and `trailing` (at most L) operations at the
+    very end, since the target accepts any flank layer."""
+    ops = []
+    for n, t in alignment.entries:
+        if isinstance(t, str):
+            ops += [t.replace("PrimaryFlank", "Primary")] * n
+        else:
+            ops.append(t)
+
+    def relabel(indices, count):
+        for k in indices:
+            t = ops[k]
+            if (count == 0 or not isinstance(t, str) or not t.startswith("Primary")
+                    or t.startswith("PrimaryFlank")):
+                return
+            ops[k] = ops[k].replace("Primary", "PrimaryFlank")
+            count -= 1
+
+    for k, t in enumerate(list(ops)):
+        if isinstance(t, TemplateSwitchExit):
+            relabel(range(k + 1, len(ops)), R)
+    for k, t in enumerate(list(ops)):
+        if isinstance(t, TemplateSwitchEntrance):
+            relabel(range(k - 1, -1, -1), L)
+    relabel(range(len(ops) - 1, -1, -1), trailing)
+    return Alignment([(1, t) for t in ops])
+
+
+def reprice(cfg, ref, qry, alignment):
+    """(cost, flank operations) of a recorded alignment under `cfg`, priced
+    by ``pricing.price_alignment`` after `with_flank_labels`.  The record does
+    not say how many flank operations end the path, so the least price over
+    the possible counts is taken: each count gives a path of the model or no
+    path, and no path of the model is cheaper than the optimum (of an
+    alignment made under no limit on the template switches: a limit forbids
+    the left-flank climb in the last round, which the pricing does not know)."""
+    L, R = cfg.left_flank_length, cfg.right_flank_length
+    best = None
+    for trailing in range(L + 1):
+        labelled = with_flank_labels(alignment, L, R, trailing)
+        price = price_alignment(cfg, ref, qry, labelled)
+        flank_ops = sum(1 for _, t in labelled.entries
+                        if isinstance(t, str) and t.startswith("PrimaryFlank"))
+        if best is None or price < best[0]:
+            best = (price, flank_ops)
+    return best
+
+
 def phase3():
-    for seed in range(3):
-        rng = np.random.default_rng(300 + seed)
-        n = int(rng.integers(40, 61))
-        r, q = planted_pair(rng, n, int(rng.integers(8, 13)), 2, seed == 1)
-        al = get_alphabet("dna-n")
-        cfg = TemplateSwitchConfig.default(al)
-        got = tsalign_tpu_torch.align(r, q, device=DEV)
-        want, _ = OracleAligner(cfg, al.encode(r), al.encode(q)).align()
-        if got.stats()["cost"] != want:
-            raise AssertionError(f"pair {seed}: port cost {got.stats()['cost']} != oracle {want}")
-        say(3, pair=seed, n_r=len(r), n_q=len(q), cost=want, equal=True)
+    al = get_alphabet("dna-n")
+    for flanked in (False, True):
+        cfg = flanked_default(al) if flanked else TemplateSwitchConfig.default(al)
+        for seed in range(3):
+            rng = np.random.default_rng((330 if flanked else 300) + seed)
+            n = int(rng.integers(40, 61))
+            r, q = planted_pair(rng, n, int(rng.integers(8, 13)), 2, seed == 1,
+                                flank_snps=flanked)
+            got = tsalign_tpu_torch.Aligner(costs=cfg, device=DEV).align(r, q)
+            want, _ = OracleAligner(cfg, al.encode(r), al.encode(q)).align()
+            if got.stats()["cost"] != want:
+                raise AssertionError(
+                    f"pair {seed} flanked={flanked}: port cost {got.stats()['cost']} "
+                    f"!= oracle {want}")
+            say(3, pair=seed, flanked=flanked, n_r=len(r), n_q=len(q), cost=want, equal=True)
 
 
 def phase4():
-    with open(FIXTURE) as f:
-        fixture = json.load(f)
-    for p in fixture["pairs"]:
-        got = tsalign_tpu_torch.align(p["reference"], p["query"], device=DEV)
-        if got.stats()["cost"] != p["cost"] or got.cigar() != p["cigar"]:
-            raise AssertionError(
-                f"fixture {p['name']}: port {got.stats()['cost']} {got.cigar()} "
-                f"!= JAX {p['cost']} {p['cigar']}"
-            )
-        say(4, pair=p["name"], n_r=len(p["reference"]), n_q=len(p["query"]),
-            cost=p["cost"], equal=True)
+    al = get_alphabet("dna-n")
+    for path, cfg in ((FIXTURE, TemplateSwitchConfig.default(al)),
+                      (FLANKED_FIXTURE, flanked_default(al))):
+        with open(path) as f:
+            fixture = json.load(f)
+        for p in fixture["pairs"]:
+            got = tsalign_tpu_torch.Aligner(costs=cfg, device=DEV).align(
+                p["reference"], p["query"])
+            if got.stats()["cost"] != p["cost"] or got.cigar() != p["cigar"]:
+                raise AssertionError(
+                    f"fixture {p['name']}: port {got.stats()['cost']} {got.cigar()} "
+                    f"!= JAX {p['cost']} {p['cigar']}"
+                )
+            say(4, pair=p["name"], n_r=len(p["reference"]), n_q=len(p["query"]),
+                cost=p["cost"], equal=True)
 
 
 def phase5():
@@ -235,9 +450,11 @@ def phase5():
     priced = price_alignment(cfg, al.encode(r), al.encode(q), res.result.alignment)
     if priced != cost:
         raise AssertionError(f"main pair: alignment reprices to {priced}, reported {cost}")
-    for name in KERNELS:
+    for name in ("sweep_flankless", "module_scan"):
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"main pair: kernel {name} was not launched")
+    if counts.get("sweep_flanked", 0) != 0:
+        raise AssertionError("main pair: a flankless config launched the flanked sweep")
     cells = res.stats()["opened_nodes"]
     say(5, n_r=len(r), n_q=len(q), cost=cost, repriced=priced,
         ts=res.stats()["template_switch_amount"], wall_s=wall,
@@ -259,16 +476,18 @@ def phase5_shapes(r, q):
     cfg = TemplateSwitchConfig.default(al).scaled_for_length_tiebreak(K)
     eng = TorchAligner(cfg, al.encode(r), al.encode(q), device=DEV)
     root = eng._root_seeds()
-    sub_rows, dd, io, ie = eng._sweep._inputs_on(root.device)
+    sub_rows, dd, io, ie = eng._get_sweep(True)._inputs_on(root.device)
     seeds = root[0].permute(1, 0, 2).contiguous()
     args = (sub_rows, dd, seeds, io, ie)
     compare("sweep_flankless", sweep_flankless(*args), sweep_flankless_torch(*args), "main shapes")
     timings = {"sweep_flankless": (cuda_ms(lambda: sweep_flankless(*args), 20),
-                                   cuda_ms(lambda: sweep_flankless_torch(*args), 1))}
+                                   cuda_ms(lambda: sweep_flankless_torch(*args), 1),
+                                   *sweep_flankless_bound(*args))}
     say(5, kernel="sweep_flankless", shape=list(seeds.shape), equal=True,
-        ms=timings["sweep_flankless"][0], plain_ms=timings["sweep_flankless"][1])
+        ms=timings["sweep_flankless"][0], plain_ms=timings["sweep_flankless"][1],
+        bound_ms=timings["sweep_flankless"][2], bound_by=timings["sweep_flankless"][3])
 
-    E, best, _ = eng._sweep_summary(root)
+    E, best, _ = eng._sweep_summary(root, True)
     A = eng._pruned_entry_cells(E, best)
     AS = eng._entry_bound(A, best)
     kinds = [km for km in eng._build_kinds(eng._sdel_budget(best)) if not km.same_seq]
@@ -297,13 +516,89 @@ def phase5_shapes(r, q):
             plain_ms = (time.monotonic() - t0) * 1e3
             kind = [km.spec.pk, km.spec.sk, km.dk]
             compare("module_scan", got, want, f"kind {kind} chunk {e_base}")
-            ms = cuda_ms(lambda: module_scan(*margs, **kw), 3)
-            timings.setdefault("module_scan", (ms, plain_ms))
+            if "module_scan" not in timings:  # the reported time, with the card's clocks
+                ms, card = under_load(lambda: cuda_ms(lambda: module_scan(*margs, **kw), 20))
+                say(5, kernel="module_scan", card_under_load=card)
+            else:
+                ms = cuda_ms(lambda: module_scan(*margs, **kw), 3)
+            bound_ms, bound_by = module_scan_bound(*margs, allow_sdel=km.allow_sdel)
+            timings.setdefault("module_scan", (ms, plain_ms, bound_ms, bound_by))
             NB, Cc, W = seedT.shape
             say(5, kernel="module_scan", kind=kind, e_base=e_base, NB=NB, C=Cc, W=W,
                 L=km.L, fwd=kw["fwd"], allow_sdel=km.allow_sdel, equal=True,
-                ms=ms, plain_ms=plain_ms)
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
     return timings
+
+
+def phase6():
+    """The flanked main path: the main pair with its two flank substitutions
+    under the flanked default, through the facade on the card."""
+    rng = np.random.default_rng(500)
+    r, q = planted_pair(rng, 500, 40, 5, True, q_len=420, flank_snps=True)
+    al = get_alphabet("dna-n")
+    cfg = flanked_default(al)
+    _build.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    aligner = tsalign_tpu_torch.Aligner(costs=cfg, device=DEV)
+    res = aligner.align(r, q)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = dict(_build.launches)
+    cost = res.stats()["cost"]
+    priced, flank_ops = reprice(cfg, al.encode(r), al.encode(q), res.result.alignment)
+    if priced != cost:
+        raise AssertionError(f"flanked main pair: alignment reprices to {priced}, reported {cost}")
+    for name in ("sweep_flanked", "module_scan"):
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"flanked main pair: kernel {name} was not launched")
+    if counts.get("sweep_flankless", 0) != 0:
+        raise AssertionError("flanked main pair: a flanked config launched the flankless sweep")
+    recorded = sum(n for n, t in res.result.alignment.entries
+                   if isinstance(t, str) and t.startswith("PrimaryFlank"))
+    if flank_ops <= 0 or recorded <= 0:
+        raise AssertionError(f"flanked main pair: no flank operation in {res.cigar()}")
+    cells = res.stats()["opened_nodes"]
+    say(6, n_r=len(r), n_q=len(q), cost=cost, repriced=priced, flank_ops=flank_ops,
+        ts=res.stats()["template_switch_amount"], wall_s=wall, cells=cells,
+        cells_per_s=cells / wall, rounds_last_pass=aligner._last_rounds, launches=counts)
+    return r, q, counts
+
+
+def phase6_shapes(r, q):
+    """The flanked sweep against its plain version at the flanked main
+    path's shapes, in the engine's plane-major layout: from the root seeds
+    and from the seeds of the round after the first reentry (climb on).
+    Returns the times and the bound of the second."""
+    al = get_alphabet("dna-n")
+    n = len(r) + len(q) + 2
+    K = 1
+    while K < n:
+        K *= 2
+    cfg = flanked_default(al).scaled_for_length_tiebreak(K)
+    eng = TorchAligner(cfg, al.encode(r), al.encode(q), device=DEV)
+    sweep = eng._get_sweep(True)
+    subs, dd, io, ie = sweep._inputs_on(torch.device(DEV))
+    kw = dict(L=sweep.L, R=sweep.R, climb=True)
+    root = eng._root_seeds()
+    E, best, _ = eng._sweep_summary(root, True)
+    kinds = eng._build_kinds(eng._sdel_budget(best))
+    R = eng._reentry(eng._pruned_entry_cells(E, best), kinds, best=best)
+    out = None
+    for what, seeds4 in (("root seeds", root), ("round 1 seeds", next_seeds(root, R))):
+        F, _, n_rows, Wq = seeds4.shape
+        seeds = seeds4.view(3 * F, n_rows, Wq).permute(1, 0, 2)
+        args = (subs, dd, seeds, io, ie)
+        compare("sweep_flanked", sweep_flanked(*args, **kw), sweep_flanked_torch(*args, **kw),
+                f"flanked main shapes, {what}")
+        ms = cuda_ms(lambda: sweep_flanked(*args, **kw), 20)
+        plain_ms = cuda_ms(lambda: sweep_flanked_torch(*args, **kw), 1)
+        bound_ms, bound_by = sweep_flanked_bound(*args, **kw)
+        seeded = int((seeds4 < DEV_INF).sum())
+        say(6, kernel="sweep_flanked", seeds=what, shape=list(seeds.shape), finite_seeds=seeded,
+            equal=True, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        out = (ms, plain_ms, bound_ms, bound_by)
+    return {"sweep_flanked": out}
 
 
 def main():
@@ -317,13 +612,23 @@ def main():
     r, q, counts = phase5()
     timings = phase5_shapes(r, q)
     say(5, phase_s=time.monotonic() - t0)
+    t0 = time.monotonic()
+    r, q, flanked_counts = phase6()
+    timings.update(phase6_shapes(r, q))
+    say(6, phase_s=time.monotonic() - t0)
     kernels = []
     for name, meta in KERNELS.items():
         if max_err[name] is None or name not in timings:
             raise AssertionError(f"{name}: not compared or not timed at the main shapes")
-        ms, plain_ms = timings[name]
-        kernels.append(dict(name=name, **meta, launches=counts[name],
-                            max_abs_err=max_err[name], ms=ms, plain_ms=plain_ms))
+        ms, plain_ms, bound_ms, bound_by = timings[name]
+        by_path = {"flankless": counts.get(name, 0), "flanked": flanked_counts.get(name, 0)}
+        # the launches of the newest main path that runs the kernel
+        launches = by_path["flanked"] or by_path["flankless"]
+        if launches <= 0:
+            raise AssertionError(f"{name}: launched on no main path")
+        kernels.append(dict(name=name, **meta, launches=launches, launches_by_path=by_path,
+                            max_abs_err=max_err[name], ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,19 @@
 #!/usr/bin/env python3
-"""Write tests/fixtures/torch_port_pairs.json: pairs aligned by the JAX package.
+"""Write the port's fixtures: pairs aligned by the JAX package.
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_port_fixture.py
+    JAX_PLATFORMS=cpu python scripts/make_torch_port_fixture.py [default] [flanked]
 
-Three seeded planted-template-switch pairs (one of 60 bp, two of 150-200 bp)
-go through ``tsalign_tpu.align(..., engine="jax")`` under the default
-configuration; their seeds, sequences, cost and CIGAR are written as the
-fixture that ``chip_smoke.py`` (phase 4) and ``tests/test_torch_aligner.py``
-hold the PyTorch/CUDA port against.
+``default`` writes tests/fixtures/torch_port_pairs.json: three seeded
+planted-template-switch pairs (one of 60 bp, two of 150-200 bp) through
+``tsalign_tpu.align(..., engine="jax")`` under the default configuration.
+``flanked`` writes tests/fixtures/torch_port_flanked_pairs.json: three pairs
+of 60-120 bp, each with a substitution on either side of the planted stretch,
+through the JAX facade under the flanked default (the default configuration
+with two flank layers on either side and flank tables of match 0,
+substitution 1, gap open 2, gap extend 1).  With no argument both are
+written.  Seeds, sequences, cost and CIGAR go into the fixture that
+``chip_smoke.py`` (phase 4) and ``tests/test_torch_aligner.py`` hold the
+PyTorch/CUDA port against.
 """
 
 from __future__ import annotations
@@ -24,15 +30,51 @@ ROOT = os.path.dirname(HERE)
 sys.path.insert(0, ROOT)
 
 import tsalign_tpu  # noqa: E402
-from chip_smoke import planted_pair  # noqa: E402
+from chip_smoke import FLANKED_FIXTURE_PAIRS, planted_pair  # noqa: E402
+from tsalign_tpu.aligner import Aligner  # noqa: E402
+from tsalign_tpu.alphabet import get_alphabet  # noqa: E402
+from tsalign_tpu.config import TemplateSwitchConfig  # noqa: E402
+from tsalign_tpu.costs import GapAffineCostTable  # noqa: E402
 
 OUT = os.path.join(ROOT, "tests", "fixtures", "torch_port_pairs.json")
+FLANKED_OUT = os.path.join(ROOT, "tests", "fixtures", "torch_port_flanked_pairs.json")
 # (name, seed, reference length, planted reverse-complement length, SNPs)
 PAIRS = (("planted_60", 60, 60, 12, 2), ("planted_150", 150, 150, 25, 3),
          ("planted_200", 200, 200, 30, 4))
 
 
-def main():
+def flanked_default():
+    """The JAX package's config equal to ``chip_smoke.flanked_default``."""
+    al = get_alphabet("dna-n")
+    cfg = TemplateSwitchConfig.default(al)
+    cfg.left_flank_length = cfg.right_flank_length = 2
+    cfg.left_flank_edit_costs = GapAffineCostTable.base_agnostic(
+        "Left Flank Edit Costs", al, 0, 1, 2, 1)
+    cfg.right_flank_edit_costs = GapAffineCostTable.base_agnostic(
+        "Right Flank Edit Costs", al, 0, 1, 2, 1)
+    return cfg
+
+
+def write_flanked():
+    aligner = Aligner(costs=flanked_default(), engine="jax")
+    pairs = []
+    for name, seed, n, ts_len, snps in FLANKED_FIXTURE_PAIRS:
+        r, q = planted_pair(np.random.default_rng(seed), n, ts_len, snps, True, flank_snps=True)
+        t0 = time.monotonic()
+        res = aligner.align(r, q)
+        print(f"{name}: cost {res.stats()['cost']} {res.cigar()} in "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+        pairs.append(dict(name=name, seed=seed, ts_len=ts_len, snps=snps, reference=r,
+                          query=q, cost=int(res.stats()["cost"]), cigar=res.cigar()))
+    with open(FLANKED_OUT, "w") as f:
+        json.dump({"config": "TemplateSwitchConfig.default(dna-n) with left/right flank "
+                             "length 2 and flank tables base_agnostic(0, 1, 2, 1)",
+                   "engine": "tsalign_tpu.Aligner(engine='jax') on the CPU",
+                   "pairs": pairs}, f, indent=1)
+        f.write("\n")
+
+
+def write_default():
     pairs = []
     for name, seed, n, ts_len, snps in PAIRS:
         r, q = planted_pair(np.random.default_rng(seed), n, ts_len, snps, True)
@@ -46,6 +88,14 @@ def main():
                    "engine": "tsalign_tpu.align(engine='jax') on the CPU",
                    "pairs": pairs}, f, indent=1)
         f.write("\n")
+
+
+def main():
+    which = sys.argv[1:] or ["default", "flanked"]
+    if "default" in which:
+        write_default()
+    if "flanked" in which:
+        write_flanked()
 
 
 if __name__ == "__main__":

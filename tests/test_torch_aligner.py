@@ -1,8 +1,11 @@
-"""The port's aligner: random configurations, the fixture pair, no JAX.
+"""The port's aligner: random configurations, the fixture pairs, no JAX.
 
-  * under ``random_config`` the port's record equals the JAX engine's;
-  * the port reproduces the 60-bp pair of tests/fixtures/torch_port_pairs.json
-    (recorded from the JAX package by scripts/make_torch_port_fixture.py);
+  * under ``random_config``, flankless and flanked, and under a
+    binding-window config with flanks 2 and 1, the port's record equals the
+    JAX engine's;
+  * the port reproduces the 60-bp pairs of tests/fixtures/torch_port_pairs.json
+    and torch_port_flanked_pairs.json (recorded from the JAX package by
+    scripts/make_torch_port_fixture.py);
   * in a subprocess where ``import jax`` fails, the port still aligns: the
     path the card's machine (which has no JAX) runs imports none of it.
 """
@@ -19,12 +22,15 @@ import tsalign_tpu_torch
 from tsalign_tpu.aligner import Aligner as JaxFacade
 from tsalign_tpu.alphabet import get_alphabet
 from tsalign_tpu.pricing import price_alignment
+from tsalign_tpu_torch import alphabet as port_alphabet
+from tsalign_tpu_torch.convert import config_from_reference
 
 from torch_util import one_torch_thread  # noqa: F401
-from util import random_config, related_pair
+from util import binding_window_config, random_config, related_pair, related_pair_scaled
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_pairs.json")
+FLANKED_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_flanked_pairs.json")
 
 
 def _record(res):
@@ -42,10 +48,39 @@ def test_random_config_matches_jax_record(seed):
     ref, qry = related_pair(rng, al, max_len=14)
     r, q = al.decode(ref), al.decode(qry)
     want = JaxFacade(costs=cfg, engine="jax").align(r, q)
-    got = tsalign_tpu_torch.Aligner(costs=cfg, device="cpu").align(r, q)
+    got = tsalign_tpu_torch.Aligner(costs=config_from_reference(cfg), device="cpu").align(r, q)
     assert _record(got) == _record(want)
     if got.has_target():
-        assert price_alignment(cfg, ref, qry, got.result.alignment) == got.stats()["cost"]
+        assert got.cigar() == want.cigar()
+        assert price_alignment(cfg, ref, qry, want.result.alignment) == got.stats()["cost"]
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_random_flanked_config_matches_jax_record(seed):
+    rng = np.random.default_rng(1300 + seed)
+    al = get_alphabet("dna")
+    cfg = random_config(rng, al, flanks=True)
+    if cfg.left_flank_length + cfg.right_flank_length == 0:
+        cfg.left_flank_length, cfg.right_flank_length = 2, 1
+    ref, qry = related_pair(rng, al, max_len=14)
+    r, q = al.decode(ref), al.decode(qry)
+    want = JaxFacade(costs=cfg, engine="jax").align(r, q)
+    got = tsalign_tpu_torch.Aligner(costs=config_from_reference(cfg), device="cpu").align(r, q)
+    assert got.stats()["cost"] == want.stats()["cost"]
+    assert got.cigar() == want.cigar()
+    assert _record(got) == _record(want)
+
+
+def test_binding_window_flanked_config_matches_jax_record():
+    rng = np.random.default_rng(2040)
+    al = get_alphabet("dna")
+    cfg = binding_window_config(rng, al, 2, 1)
+    ref, qry = related_pair_scaled(rng, al, 40, ts_len=8)
+    r, q = al.decode(ref), al.decode(qry)
+    want = JaxFacade(costs=cfg, engine="jax").align(r, q)
+    got = tsalign_tpu_torch.Aligner(costs=config_from_reference(cfg), device="cpu").align(r, q)
+    assert _record(got) == _record(want)
+    assert got.has_target() and got.cigar() == want.cigar()
 
 
 def test_fixture_pair_matches_jax():
@@ -57,15 +92,35 @@ def test_fixture_pair_matches_jax():
     assert got.cigar() == p["cigar"]
 
 
-def test_fixture_pairs_are_the_smokes_planted_pairs():
+def test_flanked_fixture_pair_matches_jax():
     sys.path.insert(0, ROOT)
-    from chip_smoke import planted_pair
+    from chip_smoke import flanked_default
 
-    with open(FIXTURE) as f:
+    with open(FLANKED_FIXTURE) as f:
         pairs = json.load(f)["pairs"]
+    p = next(p for p in pairs if len(p["reference"]) == 60)
+    cfg = flanked_default(port_alphabet.get_alphabet("dna-n"))
+    got = tsalign_tpu_torch.Aligner(costs=cfg, device="cpu").align(p["reference"], p["query"])
+    assert got.stats()["cost"] == p["cost"]
+    assert got.cigar() == p["cigar"]
+
+
+@pytest.mark.parametrize("flanked", [False, True])
+def test_fixture_pairs_are_the_smokes_planted_pairs(flanked):
+    sys.path.insert(0, ROOT)
+    from chip_smoke import FLANKED_FIXTURE_PAIRS, planted_pair
+
+    with open(FLANKED_FIXTURE if flanked else FIXTURE) as f:
+        pairs = json.load(f)["pairs"]
+    assert len(pairs) == 3
+    if flanked:
+        assert [(p["name"], p["seed"], len(p["reference"]), p["ts_len"], p["snps"])
+                for p in pairs] == [tuple(spec) for spec in FLANKED_FIXTURE_PAIRS]
+        assert all(60 <= len(p["reference"]) <= 120 for p in pairs)
     for p in pairs:
         rng = np.random.default_rng(p["seed"])
-        r, q = planted_pair(rng, len(p["reference"]), p["ts_len"], p["snps"], True)
+        r, q = planted_pair(rng, len(p["reference"]), p["ts_len"], p["snps"], True,
+                            flank_snps=flanked)
         assert (r, q) == (p["reference"], p["query"]), p["name"]
 
 

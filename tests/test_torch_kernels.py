@@ -18,7 +18,8 @@ from tsalign_tpu_torch import _build
 from tsalign_tpu_torch.ops.common import DEV_INF, sat_add
 from tsalign_tpu_torch.ops.module_scan import module_scan
 from tsalign_tpu_torch.ops.modules import module_scan_torch
-from tsalign_tpu_torch.ops.sweep import sweep_flankless, sweep_flankless_torch
+from tsalign_tpu_torch.ops.sweep import (sweep_flanked, sweep_flanked_torch, sweep_flankless,
+                                         sweep_flankless_torch)
 
 from torch_util import cuda  # noqa: F401
 
@@ -45,6 +46,46 @@ def test_sweep_kernel_matches_plain_on_card(cuda, n_rows, Wq):
     got = sweep_flankless(*args)
     assert _build.launches["sweep_flankless"] == before + 1
     assert torch.equal(got, sweep_flankless_torch(*args))
+
+
+def flanked_inputs(g, n_rows, Wq, F):
+    """Seeded inputs of the flanked sweep in the row-major layout, with
+    DEV_INF and DEV_INF - 1 entries and seeds in every layer."""
+    subs = _costs(g, (3, n_rows, Wq), 0, 7, 0.02, 0.02)
+    subs[:, 0] = DEV_INF
+    dd = _costs(g, (n_rows, 6), 0, 6, 0.02)
+    seeds = _costs(g, (n_rows, 3 * F, Wq), 0, 60, 0.9, 0.05)
+    io = _costs(g, (3, Wq), 0, 6, 0.02)
+    ie = _costs(g, (3, Wq), 0, 3, 0.02)
+    return subs, dd, seeds, io, ie
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,R,climb", [(0, 1, True), (1, 0, True), (1, 0, False), (2, 2, True),
+                                       (2, 2, False), (5, 5, True), (7, 8, True)])
+@pytest.mark.parametrize("n_rows,Wq", [(17, 1), (40, 33), (90, 513), (33, 2100)])
+def test_flanked_sweep_kernel_matches_plain_on_card(cuda, n_rows, Wq, L, R, climb):
+    g = torch.Generator().manual_seed(1000 * L + 100 * R + n_rows + int(climb))
+    F = L + R + 1
+    subs, dd, seeds, io, ie = (a.to(cuda) for a in flanked_inputs(g, n_rows, Wq, F))
+    kw = dict(L=L, R=R, climb=climb)
+    before = _build.launches["sweep_flanked"]
+    got = sweep_flanked(subs, dd, seeds, io, ie, **kw)
+    assert _build.launches["sweep_flanked"] == before + 1
+    want = sweep_flanked_torch(subs, dd, seeds, io, ie, **kw)
+    assert got.is_contiguous() and torch.equal(got, want)
+    # The engine's plane-major field layout, read and written in place.
+    planes = seeds.permute(1, 0, 2).contiguous()
+    got_p = sweep_flanked(subs, dd, planes.permute(1, 0, 2), io, ie, **kw)
+    assert got_p.permute(1, 0, 2).is_contiguous() and torch.equal(got_p, want)
+
+
+@pytest.mark.cuda
+def test_flanked_sweep_kernel_refuses_too_many_layers(cuda):
+    g = torch.Generator().manual_seed(5)
+    subs, dd, seeds, io, ie = (a.to(cuda) for a in flanked_inputs(g, 4, 5, 17))
+    with pytest.raises(ValueError):
+        sweep_flanked(subs, dd, seeds, io, ie, L=8, R=8, climb=True)
 
 
 @pytest.mark.cuda

@@ -29,6 +29,8 @@ from tsalign_tpu.ops.jax_modules import (
 )
 from tsalign_tpu.ops.pallas_module import module_scan_pallas
 from tsalign_tpu.ops.tsm_modules import make_kind_spec
+from tsalign_tpu_torch.convert import config_from_reference
+from tsalign_tpu_torch.ops import tsm_modules as port_tsm
 from tsalign_tpu_torch.ops.common import DEV_INF
 from tsalign_tpu_torch.ops.module_scan import module_scan
 from tsalign_tpu_torch.ops.modules import (
@@ -100,6 +102,7 @@ def _kinds(cfg, ref, qry, chunk, budget=None):
     """(spec, port KindModule, JaxKindModule) for every active kind."""
     out = []
     n_r, n_q = len(ref), len(qry)
+    port_cfg = config_from_reference(cfg)
     for pk in (0, 1):
         anti_lo, anti_hi = (0, n_q) if pk == 0 else (0, n_r)
         for sk in (0, 1):
@@ -107,7 +110,11 @@ def _kinds(cfg, ref, qry, chunk, budget=None):
                 spec = make_kind_spec(cfg, n_r, n_q, pk, sk, dk, sdel_budget=budget)
                 if spec is None:
                     continue
-                km = KindModule(spec, cfg, ref, qry, anti_lo, anti_hi, chunk=chunk)
+                port_spec = port_tsm.make_kind_spec(
+                    port_cfg, n_r, n_q, pk, sk, dk, sdel_budget=budget)
+                for name, value in vars(spec).items():
+                    np.testing.assert_array_equal(getattr(port_spec, name), value, err_msg=name)
+                km = KindModule(port_spec, port_cfg, ref, qry, anti_lo, anti_hi, chunk=chunk)
                 jkm = JaxKindModule(spec, cfg, ref, qry, anti_lo, anti_hi, chunk=chunk)
                 assert km.active == jkm.active
                 if km.active:

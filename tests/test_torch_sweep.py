@@ -1,9 +1,11 @@
-"""The port's flankless primary sweep against the JAX package (tolerance 0).
+"""The port's primary sweeps against the JAX package (tolerance 0).
 
 The same seeded tables and seeds go through the XLA sweep ``_sweep_jit``,
-both flankless Pallas kernels in interpret mode, and the port's plain
-``sweep_flankless_torch`` (which the wrapper runs for CPU tensors).  The CUDA
-kernel itself is held against the plain version on the card by
+the Pallas kernels in interpret mode (both flankless ones, and the flanked
+one), and the port's plain ``sweep_flankless_torch`` / ``sweep_flanked_torch``
+(which the wrappers run for CPU tensors).  The port's side is built from the
+port's own config (``convert.config_from_reference``).  The CUDA kernels
+themselves are held against the plain versions on the card by
 test_torch_kernels.py.
 """
 
@@ -17,11 +19,14 @@ from tsalign_tpu.costs import INF
 from tsalign_tpu.geometry import AlignmentRange
 from tsalign_tpu.ops.jax_primary import JaxPrimarySweep, _sweep_jit
 from tsalign_tpu.ops.jaxcommon import to_device_costs
-from tsalign_tpu.ops.pallas_sweep import sweep_pallas_flankless, sweep_pallas_flankless_tiled
+from tsalign_tpu.ops.pallas_sweep import (sweep_pallas_flanked, sweep_pallas_flankless,
+                                          sweep_pallas_flankless_tiled)
 from tsalign_tpu_torch import _build
-from tsalign_tpu_torch.convert import tables_from_numpy
+from tsalign_tpu_torch.convert import (config_from_reference, range_from_reference,
+                                       tables_from_numpy)
 from tsalign_tpu_torch.ops.primary import PrimarySweep
-from tsalign_tpu_torch.ops.sweep import sweep_flankless, sweep_flankless_torch
+from tsalign_tpu_torch.ops.sweep import (sweep_flanked, sweep_flanked_torch, sweep_flankless,
+                                         sweep_flankless_torch)
 
 from torch_util import one_torch_thread  # noqa: F401
 from util import random_config, random_pair
@@ -49,7 +54,8 @@ def _case(seed, max_len=12, min_len=3, ranged=False):
 def test_sweep_matches_xla_and_pallas(seed, ranged):
     cfg, ref, qry, rng_obj, seeds = _case(seed, ranged=ranged)
     jw = JaxPrimarySweep(cfg, ref, qry, range_=rng_obj)
-    pw = PrimarySweep(cfg, ref, qry, range_=rng_obj)
+    pw = PrimarySweep(config_from_reference(cfg), ref, qry,
+                      range_=range_from_reference(rng_obj))
     for a, b in zip(jw.flankless_inputs(), pw.flankless_inputs()):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
@@ -102,9 +108,105 @@ def test_sweep_wrapper_checks_its_inputs():
         sweep_flankless_torch(sub, dd, seeds, io, io - 1)  # negative extension
 
 
-def test_flanked_sweep_is_not_ported():
+def _flanked_case(seed, L, R, ranged=False):
+    """A random flanked config of the given flank lengths, a pair, and seeds
+    with the root and extra random entries in every layer."""
+    rng = np.random.default_rng(1900 + seed)
+    al = get_alphabet("dna")
+    cfg = random_config(rng, al, flanks=True)
+    cfg.left_flank_length, cfg.right_flank_length = L, R
+    ref, qry = random_pair(rng, al, max_len=12, min_len=3)
+    rng_obj = AlignmentRange(1, 1, len(ref), len(qry)) if ranged else None
+    F = L + R + 1
+    seeds = np.full((F, 3, len(ref) + 1, len(qry) + 1), INF, dtype=np.int64)
+    seeds[R, 0, 1 if ranged else 0, 1 if ranged else 0] = 0
+    for fi in range(F):
+        for _ in range(3):
+            g = int(rng.integers(0, 3))
+            i = int(rng.integers(0, len(ref) + 1))
+            j = int(rng.integers(0, len(qry) + 1))
+            seeds[fi, g, i, j] = int(rng.integers(0, 9))
+    seeds = to_device_costs(seeds)
+    seeds[F - 1, 1, -1, 1] = 2**30 - 2  # an INF - 1 seed
+    return cfg, ref, qry, rng_obj, seeds
+
+
+FLANKED_CASES = [(0, 2, 2, False), (1, 0, 1, False), (2, 1, 0, False), (3, 2, 1, True),
+                 (4, 1, 2, False), (5, 0, 2, True)]
+
+
+@pytest.mark.parametrize("climb", [True, False])
+@pytest.mark.parametrize("seed,L,R,ranged", FLANKED_CASES)
+def test_flanked_sweep_matches_xla_and_pallas(seed, L, R, ranged, climb):
+    cfg, ref, qry, rng_obj, seeds = _flanked_case(seed, L, R, ranged)
+    jw = JaxPrimarySweep(cfg, ref, qry, range_=rng_obj, allow_flank_climb=climb)
+    pw = PrimarySweep(config_from_reference(cfg), ref, qry,
+                      range_=range_from_reference(rng_obj), allow_flank_climb=climb)
+    for a, b in zip(jw.flanked_inputs(), pw.flanked_inputs()):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+    F = L + R + 1
+    n_rows, Wq = len(ref) + 1, len(qry) + 1
+    arrays = {"p": jw._rows["primary"], "l": jw._rows["left"], "r": jw._rows["right"],
+              "ins": jw._ins}
+    want_xla = np.asarray(_sweep_jit(jnp.asarray(seeds), arrays, L=L, R=R, climb=climb))
+    subs, dd, io, ie = jw.flanked_inputs()
+    seeds_r = np.ascontiguousarray(seeds.reshape(F * 3, n_rows, Wq).transpose(1, 0, 2))
+    want_pallas_r = np.asarray(sweep_pallas_flanked(
+        jnp.asarray(subs), jnp.asarray(dd), jnp.asarray(seeds_r), jnp.asarray(io),
+        jnp.asarray(ie), L=L, R=R, climb=climb, interpret=True))
+    want_pallas = want_pallas_r.transpose(1, 0, 2).reshape(F, 3, n_rows, Wq)
+    np.testing.assert_array_equal(want_pallas, want_xla)
+
+    # the engine's entry: (F, 3, n_r+1, n_q+1) in, the same out
+    got = pw.sweep(torch.from_numpy(seeds))
+    assert got.dtype == torch.int32 and got.shape == seeds.shape and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), want_xla)
+
+    # the wrapper and the plain version on the Pallas kernel's row-major layout
+    t = tables_from_numpy(dict(subs=subs, dd=dd, seeds=seeds_r, io=io, ie=ie), "cpu")
+    before = _build.launches["sweep_flanked"]
+    for fn in (sweep_flanked, sweep_flanked_torch):
+        got_r = fn(t["subs"], t["dd"], t["seeds"], t["io"], t["ie"], L=L, R=R, climb=climb)
+        np.testing.assert_array_equal(got_r.numpy(), want_pallas_r)
+    assert _build.launches["sweep_flanked"] == before  # the CPU path launches no kernel
+
+
+def test_flanked_sweep_wrapper_checks_its_inputs():
+    F, n_rows, Wq = 3, 4, 5
+    subs = torch.zeros((3, n_rows, Wq), dtype=torch.int32)
+    dd = torch.zeros((n_rows, 6), dtype=torch.int32)
+    seeds = torch.zeros((n_rows, 3 * F, Wq), dtype=torch.int32)
+    io = torch.zeros((3, Wq), dtype=torch.int32)
+    kw = dict(L=1, R=1, climb=True)
+    assert sweep_flanked(subs, dd, seeds, io, io, **kw).shape == seeds.shape
+    planes = torch.zeros((3 * F, n_rows, Wq), dtype=torch.int32).permute(1, 0, 2)
+    out = sweep_flanked(subs, dd, planes, io, io, **kw)
+    assert out.stride() == planes.stride()  # plane-major in, plane-major out
+    with pytest.raises(TypeError):
+        sweep_flanked(subs, dd, seeds.long(), io, io, **kw)
+    with pytest.raises(TypeError):
+        sweep_flanked(subs.long(), dd, seeds, io, io, **kw)
+    with pytest.raises(ValueError):
+        sweep_flanked(subs, dd, seeds, io, io, L=2, R=1, climb=True)  # 3F planes expected
+    with pytest.raises(ValueError):
+        sweep_flanked(subs, dd[:, :2], seeds, io, io, **kw)
+    with pytest.raises(ValueError):
+        sweep_flanked(subs, dd, seeds.transpose(1, 2), io, io, **kw)
+    with pytest.raises(ValueError):
+        sweep_flanked(subs[:2], dd, seeds, io, io, **kw)
+    with pytest.raises(ValueError):
+        sweep_flanked(subs, dd, seeds, io, io, L=8, R=8, climb=True)  # above the layer cap
+    with pytest.raises(ValueError):
+        sweep_flanked_torch(subs, dd, seeds, io, io - 1, **kw)  # negative extension
+
+
+def test_primary_sweep_checks_the_seed_shape():
     rng = np.random.default_rng(3)
     cfg = random_config(rng, get_alphabet("dna"), flanks=False)
     cfg.left_flank_length = 1
-    with pytest.raises(NotImplementedError):
-        PrimarySweep(cfg, np.zeros(3, np.int8), np.zeros(3, np.int8))
+    pw = PrimarySweep(config_from_reference(cfg), np.zeros(3, np.int8), np.zeros(3, np.int8))
+    assert pw.F == 2
+    with pytest.raises(ValueError):
+        pw.sweep(torch.zeros((1, 3, 4, 4), dtype=torch.int32))

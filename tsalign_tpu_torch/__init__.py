@@ -1,9 +1,10 @@
 """tsalign-tpu-torch: the PyTorch/CUDA port of the tsalign-tpu aligner.
 
 The same template-switch alignment as ``tsalign_tpu``, with its device work
-in PyTorch and hand-written CUDA kernels for NVIDIA Hopper.  The port shares
-the JAX-free host layers of ``tsalign_tpu`` (config, costs, pricing,
-traceback search, postprocessing) and never imports JAX.
+in PyTorch and hand-written CUDA kernels for NVIDIA Hopper.  The port is a
+package of its own: it keeps its own copy of every host layer it uses
+(alphabet, config, costs, pricing, the numpy engine, traceback search,
+postprocessing, oracle) and imports neither ``tsalign_tpu`` nor JAX.
 
     >>> import tsalign_tpu_torch
     >>> result = tsalign_tpu_torch.align("ACGT", "ACGT", device="cuda")

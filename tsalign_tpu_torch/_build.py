@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels of the port.
 
 At first use, every ``csrc/*.cu`` is compiled with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, written to
+(``sm_90a``) into a shared library of its own with a plain C interface, one
+``nvcc`` process per source and all of them started together, written to
 ``tsalign_tpu_torch/_build/`` (listed in ``.gitignore``) under the hash of the
-sources, and loaded with ``ctypes``.  A library whose hash matches is reused.
+source, and loaded with ``ctypes``.  A library whose hash matches is reused.
 Each C entry point takes raw device pointers, ints and the CUDA stream, and
 returns ``cudaGetLastError()`` after its launch; `check` raises on a nonzero
 code.  Nothing here falls back: a missing ``nvcc`` or a failed build raises.
@@ -17,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import types
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -34,17 +36,18 @@ _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
+# C entry point -> (source stem, argument types)
 _SIGNATURES = {
     # sub_rows, ddrows, seeds, io, ie, out, n_rows, Wq, stream
-    "tsa_sweep_flankless": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "tsa_sweep_flankless": ("sweep_flankless", [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
+    # subs, ddrows, seeds, io, ie, out, n_rows, Wq, L, R, climb,
+    # row_stride, plane_stride, stream
+    "tsa_sweep_flanked": ("sweep_flanked", [_P] * 6 + [_I] * 5 + [_LL] * 2 + [_P]),
     # seedT, lut, sdo, sde, pchar, pmask, io, ie, out,
     # NB, C, W, L, A, fwd, allow_sdel, stream
-    "tsa_module_scan": [_P] * 9 + [_I] * 7 + [_P],
+    "tsa_module_scan": ("module_scan", [_P] * 9 + [_I] * 7 + [_P]),
 }
-
-
-def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -55,31 +58,39 @@ def _nvcc() -> str:
 
 
 def library():
-    """The loaded kernel library, built on first call."""
+    """The loaded kernels (one attribute per C entry point), built on first
+    call: one nvcc process per source, run side by side."""
     global _lib
     if _lib is not None:
         return _lib
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    so = BUILD_DIR / f"libtsalign_kernels-{h.hexdigest()[:16]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".tmp{os.getpid()}")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-        cmd += [str(s) for s in sorted(CSRC.glob("*.cu"))]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    targets, procs = {}, []
+    for src in sorted(CSRC.glob("*.cu")):
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + src.read_bytes() + headers)
+        so = BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+        targets[src.stem] = so
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".tmp{os.getpid()}")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            procs.append((subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), tmp, so))
+    failures = []
+    for proc, tmp, so in procs:  # wait for every process before raising
+        stdout, stderr = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+            failures.append(f"nvcc failed ({proc.returncode}) on {so.name}:\n{stdout}\n{stderr}")
+        else:
+            os.replace(tmp, so)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    loaded = {stem: ctypes.CDLL(str(so)) for stem, so in targets.items()}
+    lib = types.SimpleNamespace()
+    for name, (stem, argtypes) in _SIGNATURES.items():
+        fn = getattr(loaded[stem], name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        setattr(lib, name, fn)
     _lib = lib
     return lib
 

@@ -1,9 +1,10 @@
 """Dense template-switch alignment engine on torch tensors.
 
 Counterpart of ``tsalign_tpu/jax_engine.py::JaxAligner``, run as its host
-rounds loop (``jax_engine.py:758-890``): a no-TS primary sweep, then rounds of
-per-kind reentry (module scan, assembly, fold) and re-sweeps from the reentry
-seeds, with the same exact stops: the k * delta bound, the TSLB improvement
+rounds loop (``jax_engine.py:758-890``): a no-TS primary sweep over the
+F = L + R + 1 flank layers, then rounds of per-kind reentry (module scan,
+assembly, fold) and re-sweeps from the reentry seeds (which land in the
+bottom flank layer), with the same exact stops: the k * delta bound, the TSLB improvement
 test, the no-sweep stop on an unchanged reentry field, and the pruned-field
 fixpoint.  Reentry runs on the chunked route: the live chunks come from the
 same A + S liveness test as the JAX package, and where the JAX loop would take
@@ -20,14 +21,13 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from tsalign_tpu.config import TemplateSwitchConfig
-from tsalign_tpu.costs import INF
-from tsalign_tpu.engine import min_tsm_cost_bound
-from tsalign_tpu.geometry import AlignmentRange
-from tsalign_tpu.ops.primary_sweep import GAP_NONE
-from tsalign_tpu.ops.tsm_modules import make_kind_spec, real_seq_length
-
+from .alignment import Alignment
+from .config import TemplateSwitchConfig
+from .costs import INF
 from .fields import FieldView2, FieldView4
+from .geometry import AlignmentRange
+from .lower_bounds import compute_remaining_bound
+from .numpy_engine import min_tsm_cost_bound
 from .ops.common import (
     DEV_INF,
     from_device_costs,
@@ -36,6 +36,10 @@ from .ops.common import (
 )
 from .ops.modules import KindModule, fold_kind_cells, kind_all_chunks
 from .ops.primary import PrimarySweep
+from .ops.primary_sweep import GAP_NONE
+from .ops.tsm_modules import make_kind_spec, real_seq_length
+from .plan import config_digest
+from .traceback import TracebackEngine
 
 MAX_ROUNDS = 32
 
@@ -58,8 +62,8 @@ def accumulate(R_acc, R_new):
 
 
 def next_seeds(root, R):
-    """Next sweep seeds: the root seeds min the reentry field at (flank 0,
-    GAP_NONE) (``_seeds_jit``)."""
+    """Next sweep seeds: the root seeds min the reentry field at (layer
+    index 0, GAP_NONE), the bottom flank layer -R (``_seeds_jit``)."""
     seeds = root.clone()
     seeds[0, GAP_NONE] = torch.minimum(seeds[0, GAP_NONE], R)
     return seeds
@@ -116,7 +120,15 @@ class TorchAligner:
             self._sweep_range = AlignmentRange.complete(n_r, n_q)
             self.anti_bounds_ref = (0, n_r)
             self.anti_bounds_qry = (0, n_q)
-        self._sweep = PrimarySweep(config, self.ref, self.qry, range_=self._sweep_range)
+        self._sweeps: dict = {}  # allow_flank_climb -> PrimarySweep
+
+    def _get_sweep(self, climb: bool) -> PrimarySweep:
+        if climb not in self._sweeps:
+            self._sweeps[climb] = PrimarySweep(
+                self.config, self.ref, self.qry,
+                range_=self._sweep_range, allow_flank_climb=climb,
+            )
+        return self._sweeps[climb]
 
     def _validate(self) -> None:
         cfg = self.config
@@ -148,17 +160,21 @@ class TorchAligner:
         validate_magnitudes(mx, 2 * (self.n_r + self.n_q + 2))
 
     def _root_seeds(self) -> torch.Tensor:
-        seeds = np.full((1, 3, self.n_r + 1, self.n_q + 1), DEV_INF, dtype=np.int32)
-        seeds[0, GAP_NONE, self.range.reference_offset, self.range.query_offset] = 0
+        cfg = self.config
+        F = cfg.left_flank_length + cfg.right_flank_length + 1
+        seeds = np.full((F, 3, self.n_r + 1, self.n_q + 1), DEV_INF, dtype=np.int32)
+        seeds[
+            cfg.right_flank_length,
+            GAP_NONE,
+            self.range.reference_offset,
+            self.range.query_offset,
+        ] = 0
         return torch.from_numpy(seeds).to(self.device)
 
     def _remaining_bound(self):
         """Admissible remaining-cost field (host numpy), memoized by content;
         None when the relaxed value iteration does not apply."""
         if not hasattr(self, "_lb_cache"):
-            from tsalign_tpu.chain.plan import config_digest
-            from tsalign_tpu.lower_bounds import compute_remaining_bound
-
             key = (
                 config_digest(self.config),
                 self.ref.tobytes(),
@@ -240,8 +256,6 @@ class TorchAligner:
         return b
 
     def _build_kinds(self, budget: Optional[int]) -> List[KindModule]:
-        from tsalign_tpu.chain.plan import config_digest
-
         key = (
             config_digest(self.config),
             self.ref.tobytes(),
@@ -338,11 +352,11 @@ class TorchAligner:
             )
         return R
 
-    def _sweep_summary(self, seeds: torch.Tensor):
-        """Sweep from device seeds; returns (entry cells int32 host, target
-        cost, M on the device)."""
-        M = self._sweep.sweep(seeds)
-        self.cells_swept += 3 * (self.n_r + 1) * (self.n_q + 1)
+    def _sweep_summary(self, seeds: torch.Tensor, climb: bool):
+        """Sweep from device seeds, left-flank climbs allowed when `climb`;
+        returns (entry cells int32 host, target cost, M on the device)."""
+        M = self._get_sweep(climb).sweep(seeds)
+        self.cells_swept += M.shape[0] * 3 * (self.n_r + 1) * (self.n_q + 1)
         E, tv = sweep_summary(M, self.range.reference_limit, self.range.query_limit)
         t = int(tv.min())
         return E.cpu().numpy(), (INF if t >= DEV_INF // 2 else t), M
@@ -359,7 +373,7 @@ class TorchAligner:
         root = self._root_seeds()
         t = self.max_ts
         if t is not None:
-            E, best, M = self._sweep_summary(root)
+            E, best, M = self._sweep_summary(root, 0 < t)
             keep(M, E)
             if t == 0:
                 res.cost, res.rounds = best, 1
@@ -367,16 +381,16 @@ class TorchAligner:
             budget = self._sdel_budget(best)
             self._last_budget = budget
             kinds = self._build_kinds(budget)
-            for _ in range(1, t + 1):
+            for c in range(1, t + 1):
                 R = self._reentry(self._pruned_entry_cells(E, best), kinds, best=best)
                 keepR(R)
-                E, t_cost, M = self._sweep_summary(next_seeds(root, R))
+                E, t_cost, M = self._sweep_summary(next_seeds(root, R), c < t)
                 keep(M, E)
                 best = min(best, t_cost)
             res.cost, res.rounds = best, t + 1
             return res
 
-        E, best, M = self._sweep_summary(root)
+        E, best, M = self._sweep_summary(root, True)
         keep(M, E)
         delta = min_tsm_cost_bound(self.config)
         kinds = None
@@ -407,7 +421,7 @@ class TorchAligner:
             if unchanged:
                 res.cost, res.rounds = best, k + 1
                 return res
-            E_next, t_cost, M = self._sweep_summary(next_seeds(root, R_acc))
+            E_next, t_cost, M = self._sweep_summary(next_seeds(root, R_acc), True)
             keep(M, E_next)
             new_best = min(best, t_cost)
             A_next = self._pruned_entry_cells(E_next, new_best)
@@ -430,10 +444,6 @@ class TorchAligner:
 
 def align_with_traceback(aligner: TorchAligner, result: EngineResult):
     """Traceback of an engine result (``engine._align_with_traceback``)."""
-    from tsalign_tpu.alignment import Alignment
-
-    from .traceback import TracebackEngine
-
     if result.cost >= INF:
         return result.cost, Alignment([])
     t = aligner.max_ts

@@ -66,3 +66,10 @@ class FieldView2(_RowBlocks):
         blk, i0 = self._block(int(i))
         return blk[int(i) - i0, int(j)]
 
+
+def entry_cells_of(M) -> np.ndarray:
+    """Entry layer of a primary field: works for host numpy fields and the
+    lazy device views alike (the traceback's one whole-layer read)."""
+    if hasattr(M, "entry_cells"):
+        return M.entry_cells()
+    return M[-1].min(axis=0)

@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tsalign_tpu.costs import INF
+from ..costs import INF
 
 DEV_INF = 2**30 - 1
 DEV_INF_THRESH = 2**29

@@ -28,12 +28,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from tsalign_tpu.config import TemplateSwitchConfig
-from tsalign_tpu.costs import INF, CostFunction
-from tsalign_tpu.ops.primary_sweep import GAP_DEL, GAP_INS, GAP_NONE
-from tsalign_tpu.ops.tsm_modules import KindSpec, _dense_or_inf
-
+from ..config import TemplateSwitchConfig
 from ..convert import tables_from_numpy
+from ..costs import INF, CostFunction
 from .common import (
     DEV_INF,
     I32,
@@ -46,6 +43,7 @@ from .common import (
     to_device_costs,
 )
 from .primary import pad_table_for_poison
+from .tsm_modules import KindSpec, _dense_or_inf
 
 _DK = ("Forward", "Reverse")
 

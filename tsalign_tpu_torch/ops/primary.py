@@ -1,10 +1,13 @@
-"""Primary sweep host tables and driver (flankless, F = 1).
+"""Primary sweep host tables and sweep routing (F = L + R + 1 flank layers).
 
 Counterpart of ``tsalign_tpu/ops/jax_primary.py::JaxPrimarySweep``: the same
-per-row substitution / deletion tables and per-column insertion tables
-(``jax_primary.py:34-101``, primary table only), laid out by
-`flankless_inputs` exactly as ``JaxPrimarySweep.flankless_inputs``, and a
-`sweep` that runs ``ops.sweep.sweep_flankless`` on the seeds' device.
+per-row substitution / deletion tables and per-column insertion tables for
+the primary, left-flank and right-flank cost tables
+(``jax_primary.py:34-101``), laid out by `flankless_inputs` and
+`flanked_inputs` exactly as the JAX class lays them out, and a `sweep` that
+runs ``ops.sweep.sweep_flankless`` (F == 1) or ``ops.sweep.sweep_flanked``
+(F > 1) on the seeds' device.  There is no size cap: the JAX class's
+``_pallas_ok`` guards on-chip memory of another device.
 """
 
 from __future__ import annotations
@@ -15,12 +18,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tsalign_tpu.config import TemplateSwitchConfig
-from tsalign_tpu.costs import INF
-from tsalign_tpu.geometry import AlignmentRange
-
+from ..config import TemplateSwitchConfig
+from ..costs import INF
+from ..geometry import AlignmentRange
 from .common import DEV_INF, to_device_costs
-from .sweep import sweep_flankless
+from .sweep import sweep_flanked, sweep_flankless
 
 
 def pad_table_for_poison(table):
@@ -35,7 +37,7 @@ def pad_table_for_poison(table):
 
 
 class PrimarySweep:
-    """Flankless primary sweep for one (config, pair, range)."""
+    """Primary sweep for one (config, pair, range, climb)."""
 
     def __init__(
         self,
@@ -43,16 +45,13 @@ class PrimarySweep:
         reference: np.ndarray,
         query: np.ndarray,
         range_: Optional[AlignmentRange] = None,
+        allow_flank_climb: bool = True,
     ):
         self.config = config
         self.L = config.left_flank_length
         self.R = config.right_flank_length
         self.F = self.L + self.R + 1
-        if self.F != 1:
-            raise NotImplementedError(
-                "the flanked sweep (F > 1) is not ported yet "
-                "(ROADMAP queue 1 item 6, queue 2 item 3)"
-            )
+        self.climb = allow_flank_climb
         ref = np.asarray(reference, dtype=np.int64)
         qry = np.asarray(query, dtype=np.int64)
         n_r, n_q = len(ref), len(qry)
@@ -66,52 +65,91 @@ class PrimarySweep:
         ref = np.clip(ref, 0, pad_idx)
         qry = np.clip(qry, 0, pad_idx)
 
-        table = pad_table_for_poison(config.primary_edit_costs)
-        subrow = np.full((n_r + 1, n_q), INF, dtype=np.int64)
-        delopen = np.full(n_r + 1, INF, dtype=np.int64)
-        delext = np.full(n_r + 1, INF, dtype=np.int64)
-        if n_r and n_q:
-            sub = np.where(
-                qry_ok[None, :n_q], table.substitution[ref[:, None], qry[None, :]], INF
-            )
-            subrow[1:] = np.where(ref_ok[:n_r, None], sub, INF)
-        if n_r:
-            delopen[1:] = np.where(ref_ok[:n_r], table.gap_open[ref], INF)
-            delext[1:] = np.where(ref_ok[:n_r], table.gap_extend[ref], INF)
-        insopen = np.where(qry_ok[:n_q], table.gap_open[qry], INF)
-        insext = np.where(qry_ok[:n_q], table.gap_extend[qry], INF)
-        self._rows = tuple(to_device_costs(x) for x in (subrow, delopen, delext))
-        self._ins = (to_device_costs(insopen), to_device_costs(insext))
+        self._rows = {}
+        self._ins = {}
+        for name, table in (
+            ("primary", config.primary_edit_costs),
+            ("left", config.left_flank_edit_costs),
+            ("right", config.right_flank_edit_costs),
+        ):
+            table = pad_table_for_poison(table)
+            subrow = np.full((n_r + 1, n_q), INF, dtype=np.int64)
+            delopen = np.full(n_r + 1, INF, dtype=np.int64)
+            delext = np.full(n_r + 1, INF, dtype=np.int64)
+            if n_r and n_q:
+                sub = np.where(
+                    qry_ok[None, :n_q], table.substitution[ref[:, None], qry[None, :]], INF
+                )
+                subrow[1:] = np.where(ref_ok[:n_r, None], sub, INF)
+            if n_r:
+                delopen[1:] = np.where(ref_ok[:n_r], table.gap_open[ref], INF)
+                delext[1:] = np.where(ref_ok[:n_r], table.gap_extend[ref], INF)
+            insopen = np.where(qry_ok[:n_q], table.gap_open[qry], INF)
+            insext = np.where(qry_ok[:n_q], table.gap_extend[qry], INF)
+            self._rows[name] = tuple(to_device_costs(x) for x in (subrow, delopen, delext))
+            self._ins[name] = (to_device_costs(insopen), to_device_costs(insext))
         self._dev_inputs = {}
 
     def flankless_inputs(self):
         """(sub_rows (n_rows, Wq), ddrows (n_rows, 2), io (Wq,), ie (Wq,))
         int32 numpy, laid out as ``JaxPrimarySweep.flankless_inputs``."""
-        sub, do, de = self._rows
+        sub, do, de = self._rows["primary"]
         n_rows, Wq = self.n_r + 1, self.n_q + 1
         sub_rows = np.full((n_rows, Wq), DEV_INF, np.int32)
         sub_rows[:, : self.n_q] = sub
         dd = np.stack([do, de], axis=1).astype(np.int32)
         io = np.full(Wq, DEV_INF, np.int32)
         ie = np.full(Wq, DEV_INF, np.int32)
-        io[: self.n_q] = self._ins[0]
-        ie[: self.n_q] = self._ins[1]
+        io[: self.n_q] = self._ins["primary"][0]
+        ie[: self.n_q] = self._ins["primary"][1]
         return sub_rows, dd, io, ie
+
+    def flanked_inputs(self):
+        """(subs (3, n_rows, Wq), ddrows (n_rows, 6), io (3, Wq), ie (3, Wq))
+        int32 numpy for the tables (primary, left, right), laid out as
+        ``JaxPrimarySweep.flanked_inputs``: row 0 and column n_q all-INF,
+        ddrows holds del open/extend per table."""
+        n_rows, Wq = self.n_r + 1, self.n_q + 1
+        subs = np.full((3, n_rows, Wq), DEV_INF, np.int32)
+        dd = np.full((n_rows, 6), DEV_INF, np.int32)
+        io = np.full((3, Wq), DEV_INF, np.int32)
+        ie = np.full((3, Wq), DEV_INF, np.int32)
+        for t, name in enumerate(("primary", "left", "right")):
+            sub, do, de = self._rows[name]
+            subs[t, :, : self.n_q] = sub
+            dd[:, 2 * t] = do
+            dd[:, 2 * t + 1] = de
+            io[t, : self.n_q] = self._ins[name][0]
+            ie[t, : self.n_q] = self._ins[name][1]
+        return subs, dd, io, ie
 
     def _inputs_on(self, device):
         key = str(device)
         if key not in self._dev_inputs:
+            arrays = self.flankless_inputs() if self.F == 1 else self.flanked_inputs()
             self._dev_inputs[key] = tuple(
-                torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                for a in self.flankless_inputs()
+                torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays
             )
         return self._dev_inputs[key]
 
     def sweep(self, seeds: torch.Tensor) -> torch.Tensor:
-        """seeds (1, 3, n_r+1, n_q+1) int32 -> M (1, 3, n_r+1, n_q+1) int32,
+        """seeds (F, 3, n_r+1, n_q+1) int32 -> M (F, 3, n_r+1, n_q+1) int32,
         on the seeds' device."""
-        sub_rows, dd, io, ie = self._inputs_on(seeds.device)
-        M = sweep_flankless(
-            sub_rows, dd, seeds[0].permute(1, 0, 2).contiguous(), io, ie
-        )
-        return M.permute(1, 0, 2).contiguous()[None]
+        n_rows, Wq = self.n_r + 1, self.n_q + 1
+        if tuple(seeds.shape) != (self.F, 3, n_rows, Wq):
+            raise ValueError(
+                f"seeds must have shape {(self.F, 3, n_rows, Wq)}, got {tuple(seeds.shape)}"
+            )
+        tables = self._inputs_on(seeds.device)
+        if self.F == 1:
+            sub_rows, dd, io, ie = tables
+            M = sweep_flankless(
+                sub_rows, dd, seeds[0].permute(1, 0, 2).contiguous(), io, ie
+            )
+            return M.permute(1, 0, 2).contiguous()[None]
+        subs, dd, io, ie = tables
+        # The flanked sweep reads and writes this plane-major layout in
+        # place: its (n_rows, 3F, Wq) argument is a view, and so is M.
+        seeds_r = seeds.contiguous().view(self.F * 3, n_rows, Wq).permute(1, 0, 2)
+        M = sweep_flanked(subs, dd, seeds_r, io, ie, L=self.L, R=self.R, climb=self.climb)
+        return M.permute(1, 0, 2).reshape(self.F, 3, n_rows, Wq)

@@ -1,4 +1,4 @@
-"""The flankless primary sweep: plain torch version and the CUDA kernel's wrapper.
+"""The primary sweeps: plain torch versions and the CUDA kernels' wrappers.
 
 `sweep_flankless_torch` is the plain version of the JAX package's ``_sweep_jit``
 at F = 1 (``ops/jax_primary.py``), written row by row like the Pallas kernel
@@ -7,17 +7,27 @@ on the CPU and launches ``csrc/sweep_flankless.cu`` for tensors on a CUDA
 device.  Inputs and output use the Pallas layout: sub_rows (n_rows, Wq),
 ddrows (n_rows, 2), seeds (n_rows, 3, Wq), io/ie (Wq,) -> M (n_rows, 3, Wq),
 all int32.
+
+`sweep_flanked_torch` is the plain version of ``_sweep_jit``'s ``row_step``
+over F = L + R + 1 flank layers, on the layout of the Pallas kernel
+``ops/pallas_sweep.py::sweep_pallas_flanked``: subs (3, n_rows, Wq) for the
+(primary, left-flank, right-flank) tables, ddrows (n_rows, 6) del open/extend
+per table, seeds (n_rows, 3F, Wq) layer-major (plane 3 * fi + gap), io/ie
+(3, Wq) -> M (n_rows, 3F, Wq).  `sweep_flanked` runs it for tensors on the CPU
+and launches ``csrc/sweep_flanked.cu`` for tensors on a CUDA device.  Its
+seeds may be row-major (contiguous) or plane-major (a ``permute(1, 0, 2)``
+view of a contiguous (3F, n_rows, Wq) tensor, the engine's field layout); M
+comes back in the layout of the seeds.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tsalign_tpu.ops.primary_sweep import GAP_DEL, GAP_INS, GAP_NONE
-
 from .. import _build
 from .common import (DEV_INF, I32, check_extension, check_tensor, minplus_scan, sat_add,
                      shift_last)
+from .primary_sweep import GAP_DEL, GAP_INS, GAP_NONE
 
 
 def sweep_flankless_torch(sub_rows, ddrows, seeds, io, ie):
@@ -75,4 +85,111 @@ def sweep_flankless(sub_rows, ddrows, seeds, io, ie):
         )
         _build.check(code, "sweep_flankless")
         _build.launches["sweep_flankless"] += 1
+    return out
+
+
+MAX_FLANK_LAYERS = 16  # the deepest layer stack the flanked kernel is held to
+
+
+def _climb_table(fi: int, L: int, R: int, climb: bool):
+    """Table index (1 left flank, 2 right flank) of the climb edges into
+    layer index fi from fi - 1, or None where the layer takes seeds only."""
+    f = fi - R
+    if (-R < f < 0) or (f == 0 and R > 0):
+        return 2
+    if f > 0 and climb:
+        return 1
+    return None
+
+
+def sweep_flanked_torch(subs, ddrows, seeds, io, ie, *, L: int, R: int, climb: bool):
+    """Plain torch flank-layered sweep (any device)."""
+    _, n_rows, Wq = subs.shape
+    F = L + R + 1
+    out = torch.empty_like(seeds)
+    prev = torch.full((3 * F, Wq), DEV_INF, dtype=I32, device=subs.device)
+    check_extension("sweep_flanked_torch", ie[0])
+    ext_into = shift_last(ie[0], 1, True)
+
+    def diag_from(src, sub_row):
+        return torch.clamp_max(
+            shift_last(src.amin(dim=0), 1, True) + shift_last(sub_row, 1, True), DEV_INF
+        )
+
+    def del_from(src, d_open, d_ext):
+        return torch.minimum(
+            sat_add(torch.minimum(src[GAP_NONE], src[GAP_INS]), d_open),
+            sat_add(src[GAP_DEL], d_ext),
+        )
+
+    for r in range(n_rows):
+        row = out[r]
+        for fi in range(F):
+            lo = 3 * fi
+            none_c = seeds[r, lo + GAP_NONE]
+            ins_c = seeds[r, lo + GAP_INS]
+            del_c = seeds[r, lo + GAP_DEL]
+            if fi == R:
+                none_c = torch.minimum(none_c, diag_from(prev[lo : lo + 3], subs[0, r]))
+                del_c = torch.minimum(
+                    del_c, del_from(prev[lo : lo + 3], ddrows[r, 0], ddrows[r, 1])
+                )
+            ct = _climb_table(fi, L, R, climb)
+            if ct is not None:
+                below = prev[lo - 3 : lo]
+                none_c = torch.minimum(none_c, diag_from(below, subs[ct, r]))
+                del_c = torch.minimum(
+                    del_c, del_from(below, ddrows[r, 2 * ct], ddrows[r, 2 * ct + 1])
+                )
+                # climb insertion: one step from the current row of the
+                # layer below, which the bottom-up order has finished
+                cur = row[lo - 3 : lo]
+                o = sat_add(torch.minimum(cur[GAP_NONE], cur[GAP_DEL]), io[ct])
+                e = sat_add(cur[GAP_INS], ie[ct])
+                ins_c = torch.minimum(ins_c, shift_last(torch.minimum(o, e), 1, True))
+            if fi == R:
+                open_c = shift_last(sat_add(torch.minimum(none_c, del_c), io[0]), 1, True)
+                ins_c = minplus_scan(torch.minimum(ins_c, open_c), ext_into)
+            row[lo + GAP_NONE] = none_c
+            row[lo + GAP_INS] = ins_c
+            row[lo + GAP_DEL] = del_c
+        prev = row
+    return out
+
+
+def sweep_flanked(subs, ddrows, seeds, io, ie, *, L: int, R: int, climb: bool):
+    """Flank-layered sweep: the plain version on the CPU, the kernel on CUDA."""
+    if subs.dim() != 3 or subs.shape[0] != 3:
+        raise ValueError("subs must be (3, n_rows, Wq)")
+    if L < 0 or R < 0:
+        raise ValueError("flank lengths must be >= 0")
+    F = L + R + 1
+    if F > MAX_FLANK_LAYERS:
+        raise ValueError(f"sweep_flanked takes at most {MAX_FLANK_LAYERS} flank layers, got {F}")
+    _, n_rows, Wq = subs.shape
+    dev = subs.device
+    check_tensor("subs", subs, (3, n_rows, Wq), dev)
+    check_tensor("ddrows", ddrows, (n_rows, 6), dev)
+    check_tensor("io", io, (3, Wq), dev)
+    check_tensor("ie", ie, (3, Wq), dev)
+    plane_major = (
+        isinstance(seeds, torch.Tensor) and seeds.dim() == 3
+        and not seeds.is_contiguous() and seeds.permute(1, 0, 2).is_contiguous()
+    )
+    check_tensor("seeds", seeds.permute(1, 0, 2) if plane_major else seeds,
+                 (3 * F, n_rows, Wq) if plane_major else (n_rows, 3 * F, Wq), dev)
+    if dev.type == "cpu":
+        return sweep_flanked_torch(subs, ddrows, seeds, io, ie, L=L, R=R, climb=bool(climb))
+    if dev.type != "cuda":
+        raise ValueError(f"sweep_flanked runs on cpu or cuda, not {dev}")
+    lib = _build.library()
+    out = torch.empty_strided(seeds.shape, seeds.stride(), dtype=I32, device=dev)
+    if n_rows and Wq:
+        code = lib.tsa_sweep_flanked(
+            subs.data_ptr(), ddrows.data_ptr(), seeds.data_ptr(), io.data_ptr(),
+            ie.data_ptr(), out.data_ptr(), n_rows, Wq, L, R, int(bool(climb)),
+            seeds.stride(0), seeds.stride(1), _build.stream_ptr(dev),
+        )
+        _build.check(code, "sweep_flanked")
+        _build.launches["sweep_flanked"] += 1
     return out
