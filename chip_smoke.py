@@ -4,12 +4,17 @@
     python3 chip_smoke.py            # needs one CUDA card; takes no arguments
 
 Phases, each ending with a line of its wall time (phase_s):
-  1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
-     build of the CUDA kernels from tsalign_tpu_torch/csrc;
+  1. the card (nvidia-smi name and power limit), torch/CUDA versions, the
+     build of the CUDA kernels from tsalign_tpu_torch/csrc, and what ptxas
+     and cuobjdump say of the module scan (registers and spills of every
+     instantiation, DPX instructions in its SASS);
   2. each kernel against its plain torch version on the card (torch.equal,
      tolerance 0) on seeded inputs holding DEV_INF and DEV_INF - 1, timed
      with CUDA events; the flanked sweep for six (L, R, climb) settings and
-     in both seed layouts;
+     in both seed layouts; the module scan in both of its modes (the exact
+     mode by torch.equal, the skipping mode by equal_mod_inf: equal below
+     2^29, infinite where the plain version is) on inputs a part of whose
+     problems die (infinite seed rows, a mask that turns infinite);
   3. three small planted-TSM pairs under the default configuration and three
      under the flanked default: the port's cost equals the Dijkstra oracle's
      (tsalign_tpu_torch.oracle);
@@ -21,7 +26,10 @@ Phases, each ending with a line of its wall time (phase_s):
      device="cuda"); the flankless sweep and the module scan must launch, and
      the alignment must reprice to the cost; then both kernels against their
      plain versions at the shapes that path launches: the root sweep, and two
-     chunks of every cross kind in both directions;
+     chunks of every cross kind in both directions, the module scan in both
+     modes with each mode's time and bound, the share of (problem, level)
+     pairs the skipping mode has to run and the share of problems dead at
+     level 0;
   6. the flanked main path: the same pair with a substitution on either side
      of the planted stretch, under the flanked default (two flank layers on
      either side, F = 5, cheaper flank tables), through
@@ -36,11 +44,17 @@ and {"ok": true, "device": {...}}.
 
 In the kernels' record, bound_ms is the least time the card could take for
 the compared call: the larger of its bytes (every input read once, the
-output written once) over 3.35 TB/s and its integer operations over
-16.75e12 a second.  That integer rate is the H100's float32 peak outside
-the tensor cores (67 TFLOP/s: 132 SMs x 128 lanes x 2 operations a fused
-multiply-add) cut to the 64 int32 lanes an SM has, each doing one
-operation a clock.  library_ms is null: no single PyTorch call computes a (min,+)
+output written once) over 3.35 TB/s and its integer min/add operations over
+33.5e12 a second.  The module scan's skipping mode counts the levels its
+inputs need: for each problem those up to the first whose exit minimum in the
+plain result reaches skip_from (the kernel's own criterion).  That integer
+rate is the H100's float32 peak outside the tensor cores (67 TFLOP/s: 132 SMs
+x 128 lanes x 2 operations a fused multiply-add) cut to the 64 int32 lanes an
+SM has, each taking one instruction a clock, times the two operations a DPX
+instruction does (an add and a min in VIADDMNMX, two mins in VIMNMX3).  Before
+the module scan used DPX the bound took one operation an instruction
+(16.75e12 a second); the kernel now runs below that figure, so it was no
+bound.  library_ms is null: no single PyTorch call computes a (min,+)
 wavefront or the module scan.
 """
 
@@ -48,6 +62,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -64,7 +80,8 @@ from tsalign_tpu_torch.alphabet import get_alphabet
 from tsalign_tpu_torch.config import TemplateSwitchConfig
 from tsalign_tpu_torch.costs import GapAffineCostTable
 from tsalign_tpu_torch.engine import TorchAligner, next_seeds
-from tsalign_tpu_torch.ops.common import DEV_INF, sat_add
+from tsalign_tpu_torch.ops.common import (DEV_INF, DEV_INF_THRESH, dead_state_threshold,
+                                          equal_mod_inf, sat_add)
 from tsalign_tpu_torch.ops.module_scan import module_scan
 from tsalign_tpu_torch.ops.modules import module_scan_torch
 from tsalign_tpu_torch.ops.sweep import (sweep_flanked, sweep_flanked_torch, sweep_flankless,
@@ -81,7 +98,7 @@ FLANKED_FIXTURE = os.path.join(FIXTURES, "torch_port_flanked_pairs.json")
 FLANKED_FIXTURE_PAIRS = (("flanked_60", 1060, 60, 12, 2), ("flanked_90", 1090, 90, 16, 2),
                          ("flanked_120", 1120, 120, 20, 3))
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 4
+INT32_OPS_PER_S = 67e12 / 4 * 2  # 64 of an SM's 128 lanes, two operations a DPX instruction
 KERNELS = {
     "sweep_flankless": {
         "route": "cuda",
@@ -151,13 +168,19 @@ def under_load(fn):
                      power_w_max=max(r[1] for r in rows), temp_c_max=max(r[2] for r in rows))
 
 
-def compare(name, got, want, what):
+def compare(name, got, want, what, mod_inf=False):
+    """Raise unless the kernel's `got` equals the plain version's `want`:
+    by torch.equal, or with `mod_inf` by equal_mod_inf (the error is then
+    taken over the entries where `want` is below 2^29)."""
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{name} {what}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
-    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    diff = (got.long() - want.long()).abs()
+    if mod_inf:
+        diff = diff[want < DEV_INF_THRESH]
+    err = int(diff.max()) if diff.numel() else 0
     max_err[name] = max(max_err[name] or 0, err)
-    if not torch.equal(got, want):
+    if not (equal_mod_inf(got, want) if mod_inf else torch.equal(got, want)):
         raise AssertionError(f"{name} {what}: kernel differs from the plain version (max abs err {err})")
 
 
@@ -228,29 +251,88 @@ def sweep_flanked_bound(subs, dd, seeds, io, ie, *, L, R, climb):
                  cells * SWEEP_OPS_PER_CELL * (1 + climbing))
 
 
-def module_scan_bound(seedT, lut, sdo, sde, pchar, pmask, io, ie, *, allow_sdel):
+def module_scan_bound(seedT, lut, sdo, sde, pchar, pmask, io, ie, *, allow_sdel,
+                      B_plain=None, skip_from=0):
+    """(bound_ms, bound_by, live share, share dead at level 0).  The exact
+    mode runs every level of every problem.  The skipping mode (`skip_from`
+    > 0, with the plain result `B_plain`) has to close and emit the levels of
+    a problem up to the first whose minimum reaches `skip_from`, and to step
+    between them; the live share is those levels over all."""
     NB, C, W = seedT.shape
     L = pchar.shape[0]
     close_emit = (SCAN_CLOSE_OPS if allow_sdel else 0) + SCAN_EMIT_OPS
-    ops = NB * C * W * (L * (close_emit + SCAN_STEP_OPS) + close_emit)
+    if skip_from > 0:
+        dead = B_plain >= skip_from
+        first = torch.where(dead.any(0), dead.int().argmax(0), L)  # (NB, C)
+        levels = int((first + 1).sum())
+        dead0 = float((first == 0).float().mean()) if first.numel() else 0.0
+    else:
+        levels, dead0 = NB * C * (L + 1), 0.0
+    ops = W * (levels * close_emit + (levels - NB * C) * SCAN_STEP_OPS)
     out_bytes = 4 * (L + 1) * NB * C
-    return bound(nbytes(seedT, lut, sdo, sde, pchar, pmask, io, ie) + out_bytes, ops)
+    live = levels / max(NB * C * (L + 1), 1)
+    return (*bound(nbytes(seedT, lut, sdo, sde, pchar, pmask, io, ie) + out_bytes, ops),
+            live, dead0)
 
 
 def module_inputs(gen, NB, C, W, L, A=6):
+    """Seeded module-scan inputs with negative table entries.  Of every four
+    entry rows, one has infinite seeds (dead at level 0) and one a mask that
+    is infinite from a random level on (dead from there), so that the
+    skipping mode leaves problems at many levels."""
     # Finite seeds >= L keep every value nonnegative (see ops/common.py).
     seedT = rand_costs(gen, (NB, C, W), L, L + 40, 0.5, 0.05)
+    seedT[1::4] = DEV_INF
     lut = rand_costs(gen, (A, C, W), -1, 7, 0.05, 0.05)
     lut[A - 1] = DEV_INF
     sdo = rand_costs(gen, (C, W), 0, 6, 0.05)
     sde = rand_costs(gen, (C, W), 0, 3, 0.05)
     pchar = torch.randint(0, A, (L, NB), generator=gen, dtype=torch.int32).to(DEV)
-    pmask = torch.where(torch.rand((L, NB), generator=gen) < 0.1, DEV_INF, 0).to(torch.int32).to(DEV)
+    pmask = torch.where(torch.rand((L, NB), generator=gen) < 0.02, DEV_INF, 0).to(torch.int32)
+    cut = torch.randint(0, L + 1, (NB,), generator=gen)
+    dying = torch.arange(L)[:, None] >= cut[None, :]
+    dying[:, torch.arange(NB) % 4 != 3] = False
+    pmask = torch.where(dying, DEV_INF, pmask).to(DEV)
     pgo = rand_costs(gen, (A,), -1, 6)
     pge = rand_costs(gen, (A,), -1, 3)
     io = sat_add(pgo[pchar.long()], pmask)
     ie = sat_add(pge[pchar.long()], pmask)
     return seedT, lut, sdo, sde, pchar, pmask, io, ie
+
+
+def scan_skip_from(args, allow_sdel):
+    """skip_from of the skipping mode for module-scan inputs `args`."""
+    _, lut, sdo, _, pchar, pmask, io, ie = args
+    skip_from = dead_state_threshold(lut, sdo, pmask, io, ie, pchar.shape[0],
+                                     allow_sdel=allow_sdel)
+    if skip_from <= 0:
+        raise AssertionError("module_scan: these inputs give no skipping mode")
+    return skip_from
+
+
+def module_scan_build_report():
+    """What the build says of the module scan: registers, stack and spill
+    bytes of each instantiation (by K, the offsets a lane) from ptxas, and
+    how often each DPX instruction stands in its SASS (cuobjdump)."""
+    per_k = {}
+    for r in _build.resources("module_scan"):
+        k = re.search(r"ILi(\d+)E", r["name"])
+        per_k[int(k.group(1)) if k else r["name"]] = [
+            r["registers"], r["stack"], r["spill_stores"] + r["spill_loads"]]
+    say(1, module_scan_registers_stack_spill_by_K=per_k,
+        most_registers=max(v[0] for v in per_k.values()),
+        instantiations_spilling=sorted(k for k, v in per_k.items() if v[2]))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        say(1, module_scan_sass="cuobjdump not found")
+        return
+    sass = subprocess.run([tool, "-sass", _build.library().paths["module_scan"]],
+                          capture_output=True, text=True, check=True).stdout
+    ops = re.findall(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_]+)", sass, re.M)
+    dpx = {op: ops.count(op) for op in sorted(set(ops)) if op.startswith(("VIADD", "VIMNMX"))}
+    say(1, module_scan_sass_instructions=len(ops), dpx=dpx)
+    if not dpx:
+        raise AssertionError("module_scan: no DPX instruction in the SASS")
 
 
 def phase1():
@@ -259,6 +341,7 @@ def phase1():
     say(1, card=card_line(), torch=torch.__version__, cuda=torch.version.cuda,
         python=sys.version.split()[0], build_s=time.monotonic() - t0,
         devices=torch.cuda.device_count())
+    module_scan_build_report()
 
 
 def phase2():
@@ -288,19 +371,28 @@ def phase2():
                 equal=True,
                 ms=cuda_ms(lambda: sweep_flanked(subs, dd, seeds, io, ie, **kw), 10),
                 plain_ms=cuda_ms(lambda: sweep_flanked_torch(subs, dd, seeds, io, ie, **kw), 1))
+    # (NB, C, W, L): the shapes held since the first slice, then widths at
+    # the edges of a lane's run (W = 32 K and its neighbours), the main
+    # path's, a 1000-bp pair's and the widest, on NB not a multiple of the
+    # warps a block.
+    shapes = [(64, C, 201, L) for C in (8, 64) for L in (5, 64)]
+    shapes += [(13, 8, W, 12) for W in (1, 31, 32, 33, 521, 545, 1100, 2048)]
     for fwd in (True, False):
         for sdel in (True, False):
-            for C in (8, 64):
-                for L in (5, 64):
-                    args = module_inputs(gen, 64, C, 201, L)
-                    got = module_scan(*args, fwd=fwd, allow_sdel=sdel)
-                    want = module_scan_torch(*args, fwd=fwd, allow_sdel=sdel)
-                    compare("module_scan", got, want, f"fwd={fwd} sdel={sdel} C={C} L={L}")
-                    kw = dict(fwd=fwd, allow_sdel=sdel)
-                    say(2, kernel="module_scan", NB=64, C=C, W=201, L=L, fwd=fwd,
-                        allow_sdel=sdel, equal=True,
-                        ms=cuda_ms(lambda: module_scan(*args, **kw), 10),
-                        plain_ms=cuda_ms(lambda: module_scan_torch(*args, **kw), 1))
+            for NB, C, W, L in shapes:
+                args = module_inputs(gen, NB, C, W, L)
+                kw = dict(fwd=fwd, allow_sdel=sdel)
+                skip = dict(kw, skip_from=scan_skip_from(args, sdel))
+                want = module_scan_torch(*args, **kw)
+                what = f"fwd={fwd} sdel={sdel} NB={NB} C={C} W={W} L={L}"
+                compare("module_scan", module_scan(*args, **kw), want, what + " exact")
+                compare("module_scan", module_scan(*args, **skip), want, what + " skipping",
+                        mod_inf=True)
+                say(2, kernel="module_scan", NB=NB, C=C, W=W, L=L, fwd=fwd,
+                    allow_sdel=sdel, equal=True, equal_mod_inf_skipping=True,
+                    ms=cuda_ms(lambda: module_scan(*args, **kw), 10),
+                    skipping_ms=cuda_ms(lambda: module_scan(*args, **skip), 10),
+                    plain_ms=cuda_ms(lambda: module_scan_torch(*args, **kw), 1))
 
 
 def planted_pair(rng, n, ts_len, snps, indel, q_len=None, flank_snps=False):
@@ -487,6 +579,50 @@ def phase5_shapes(r, q):
         ms=timings["sweep_flankless"][0], plain_ms=timings["sweep_flankless"][1],
         bound_ms=timings["sweep_flankless"][2], bound_by=timings["sweep_flankless"][3])
 
+    for km, e_base, margs in main_pair_chunks(eng, root):
+        kw = dict(fwd=km.dk == 0, allow_sdel=km.allow_sdel)
+        skip = dict(kw, skip_from=km.skip_from)
+        if km.skip_from <= 0:
+            raise AssertionError("main pair: the kind's tables give no skipping mode")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        want = module_scan_torch(*margs, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.monotonic() - t0) * 1e3
+        kind = [km.spec.pk, km.spec.sk, km.dk]
+        compare("module_scan", module_scan(*margs, **kw), want,
+                f"kind {kind} chunk {e_base} exact")
+        compare("module_scan", module_scan(*margs, **skip), want,
+                f"kind {kind} chunk {e_base} skipping", mod_inf=True)
+        if "module_scan" not in timings:  # the reported times, with the card's clocks
+            (exact_ms, ms), card = under_load(lambda: (
+                cuda_ms(lambda: module_scan(*margs, **kw), 20),
+                cuda_ms(lambda: module_scan(*margs, **skip), 20)))
+            say(5, kernel="module_scan", card_under_load=card)
+        else:
+            exact_ms = cuda_ms(lambda: module_scan(*margs, **kw), 3)
+            ms = cuda_ms(lambda: module_scan(*margs, **skip), 3)
+        exact_bound_ms, exact_by, _, _ = module_scan_bound(*margs, allow_sdel=km.allow_sdel)
+        bound_ms, bound_by, live, dead0 = module_scan_bound(
+            *margs, allow_sdel=km.allow_sdel, B_plain=want, skip_from=km.skip_from)
+        # the main path launches the skipping mode: its numbers are reported
+        timings.setdefault("module_scan", (ms, plain_ms, bound_ms, bound_by))
+        NB, Cc, W = margs[0].shape
+        say(5, kernel="module_scan", kind=kind, e_base=e_base, NB=NB, C=Cc, W=W,
+            L=km.L, fwd=kw["fwd"], allow_sdel=km.allow_sdel, equal=True,
+            equal_mod_inf_skipping=True, skip_from=km.skip_from,
+            exact_ms=exact_ms, exact_bound_ms=exact_bound_ms, exact_bound_by=exact_by,
+            ms=ms, bound_ms=bound_ms, bound_by=bound_by, live_share=live,
+            dead_at_level_0_share=dead0, plain_ms=plain_ms)
+    return timings
+
+
+def main_pair_chunks(eng, root):
+    """(kind module, entry column, module-scan inputs) of the chunks the
+    smoke holds the module scan on: for every active cross kind of the
+    engine's first reentry round (forward and reverse, each with its own
+    allow_sdel), the chunk at entry column 0 and the middle live chunk after
+    it."""
     E, best, _ = eng._sweep_summary(root, True)
     A = eng._pruned_entry_cells(E, best)
     AS = eng._entry_bound(A, best)
@@ -505,29 +641,9 @@ def phase5_shapes(r, q):
         for e_base in [0] + later[len(later) // 2 :][:1]:
             sl = slice(e_base, e_base + C)
             seedT = sat_add(A_mod[:, sl][:, :, None], t["seed"][sl][None, :, :]).contiguous()
-            margs = (seedT, t["lut"][:, sl].contiguous(), t["sdo"][sl].contiguous(),
-                     t["sde"][sl].contiguous(), t["pchar_l"], t["pmask_l"], t["io_l"], t["ie_l"])
-            kw = dict(fwd=km.dk == 0, allow_sdel=km.allow_sdel)
-            got = module_scan(*margs, **kw)
-            torch.cuda.synchronize()
-            t0 = time.monotonic()
-            want = module_scan_torch(*margs, **kw)
-            torch.cuda.synchronize()
-            plain_ms = (time.monotonic() - t0) * 1e3
-            kind = [km.spec.pk, km.spec.sk, km.dk]
-            compare("module_scan", got, want, f"kind {kind} chunk {e_base}")
-            if "module_scan" not in timings:  # the reported time, with the card's clocks
-                ms, card = under_load(lambda: cuda_ms(lambda: module_scan(*margs, **kw), 20))
-                say(5, kernel="module_scan", card_under_load=card)
-            else:
-                ms = cuda_ms(lambda: module_scan(*margs, **kw), 3)
-            bound_ms, bound_by = module_scan_bound(*margs, allow_sdel=km.allow_sdel)
-            timings.setdefault("module_scan", (ms, plain_ms, bound_ms, bound_by))
-            NB, Cc, W = seedT.shape
-            say(5, kernel="module_scan", kind=kind, e_base=e_base, NB=NB, C=Cc, W=W,
-                L=km.L, fwd=kw["fwd"], allow_sdel=km.allow_sdel, equal=True,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-    return timings
+            yield km, e_base, (
+                seedT, t["lut"][:, sl].contiguous(), t["sdo"][sl].contiguous(),
+                t["sde"][sl].contiguous(), t["pchar_l"], t["pmask_l"], t["io_l"], t["ie_l"])
 
 
 def phase6():

@@ -6,7 +6,9 @@ no JAX:
     python -m pytest tests/test_torch_kernels.py -m cuda -q
 
 Every input is seeded and holds DEV_INF and DEV_INF - 1 entries; the
-tolerance is 0 (``torch.equal``).  Without a card the tests skip, and the
+tolerance is 0 (``torch.equal``), and for the module scan's skipping mode
+``equal_mod_inf`` (equal below 2^29, infinite where the plain version is).
+Without a card the tests skip, and the
 plain versions are held against the JAX package by test_torch_sweep.py and
 test_torch_modules.py.
 """
@@ -15,7 +17,8 @@ import pytest
 import torch
 
 from tsalign_tpu_torch import _build
-from tsalign_tpu_torch.ops.common import DEV_INF, sat_add
+from tsalign_tpu_torch.ops.common import (DEV_INF, DEV_INF_THRESH, dead_state_threshold,
+                                          equal_mod_inf, sat_add)
 from tsalign_tpu_torch.ops.module_scan import module_scan
 from tsalign_tpu_torch.ops.modules import module_scan_torch
 from tsalign_tpu_torch.ops.sweep import (sweep_flanked, sweep_flanked_torch, sweep_flankless,
@@ -88,23 +91,84 @@ def test_flanked_sweep_kernel_refuses_too_many_layers(cuda):
         sweep_flanked(subs, dd, seeds, io, ie, L=8, R=8, climb=True)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("allow_sdel", [True, False])
-@pytest.mark.parametrize("fwd", [True, False])
-@pytest.mark.parametrize("W", [5, 201, 1101])
-def test_module_scan_kernel_matches_plain_on_card(cuda, fwd, allow_sdel, W):
-    NB, C, L, A = 16, 8, 12, 6
-    g = torch.Generator().manual_seed(W + 2 * int(fwd) + int(allow_sdel))
+def scan_inputs(g, NB, C, W, L, A=6):
+    """Seeded module-scan inputs with negative table entries (LUT, io, ie).
+    Of every four entry rows one has infinite seeds and one a mask that is
+    infinite from a random level on, so the skipping mode leaves problems at
+    level 0 and at later levels."""
     # Finite seeds >= L keep every value nonnegative (see ops/common.py).
     seedT = _costs(g, (NB, C, W), L, L + 40, 0.5, 0.05)
+    seedT[1::4] = DEV_INF
     lut = _costs(g, (A, C, W), -1, 7, 0.05, 0.05)
     lut[A - 1] = DEV_INF
     sdo = _costs(g, (C, W), 0, 6, 0.05)
     sde = _costs(g, (C, W), 0, 3, 0.05)
     pchar = torch.randint(0, A, (L, NB), generator=g, dtype=torch.int32)
-    pmask = torch.where(torch.rand((L, NB), generator=g) < 0.1, DEV_INF, 0).to(torch.int32)
+    pmask = torch.where(torch.rand((L, NB), generator=g) < 0.02, DEV_INF, 0).to(torch.int32)
+    cut = torch.randint(0, L + 1, (NB,), generator=g)
+    dying = torch.arange(L)[:, None] >= cut[None, :]
+    dying[:, torch.arange(NB) % 4 != 3] = False
+    pmask = torch.where(dying, DEV_INF, pmask).to(torch.int32)
     io = sat_add(_costs(g, (A,), -1, 6)[pchar.long()], pmask)
     ie = sat_add(_costs(g, (A,), -1, 3)[pchar.long()], pmask)
-    t = [a.to(cuda) for a in (seedT, lut, sdo, sde, pchar, pmask, io, ie)]
+    return seedT, lut, sdo, sde, pchar, pmask, io, ie
+
+
+# NB = 13 and 16: not a multiple and a multiple of the warps a block.
+SCAN_SHAPES = [(16, 8, 5, 12), (16, 8, 201, 12), (16, 8, 1101, 12)] + [
+    (13, 4, W, 20) for W in (1, 31, 32, 33, 521, 545, 1100, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("allow_sdel", [True, False])
+@pytest.mark.parametrize("fwd", [True, False])
+@pytest.mark.parametrize("NB,C,W,L", SCAN_SHAPES)
+def test_module_scan_kernel_matches_plain_on_card(cuda, fwd, allow_sdel, NB, C, W, L):
+    g = torch.Generator().manual_seed(W + 2 * int(fwd) + int(allow_sdel))
+    t = [a.to(cuda) for a in scan_inputs(g, NB, C, W, L)]
     kw = dict(fwd=fwd, allow_sdel=allow_sdel)
-    assert torch.equal(module_scan(*t, **kw), module_scan_torch(*t, **kw))
+    before = _build.launches["module_scan"]
+    got = module_scan(*t, **kw)
+    assert _build.launches["module_scan"] == before + 1
+    assert torch.equal(got, module_scan_torch(*t, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("allow_sdel", [True, False])
+@pytest.mark.parametrize("fwd", [True, False])
+@pytest.mark.parametrize("NB,C,W,L", SCAN_SHAPES)
+def test_module_scan_kernel_skipping_mode_on_card(cuda, fwd, allow_sdel, NB, C, W, L):
+    g = torch.Generator().manual_seed(7 * W + 2 * int(fwd) + int(allow_sdel))
+    t = [a.to(cuda) for a in scan_inputs(g, NB, C, W, L)]
+    _, lut, sdo, _, _, pmask, io, ie = t
+    skip_from = dead_state_threshold(lut, sdo, pmask, io, ie, L, allow_sdel=allow_sdel)
+    assert skip_from >= DEV_INF_THRESH
+    kw = dict(fwd=fwd, allow_sdel=allow_sdel)
+    before = _build.launches["module_scan"]
+    got = module_scan(*t, **kw, skip_from=skip_from)
+    assert _build.launches["module_scan"] == before + 1
+    want = module_scan_torch(*t, **kw)
+    assert equal_mod_inf(got, want)
+    # a problem leaves after the first level whose minimum reaches skip_from:
+    # every later entry of its column is exactly DEV_INF
+    left = torch.cummax((want >= skip_from).int(), dim=0).values.bool()
+    left = torch.cat([torch.zeros_like(left[:1]), left[:-1]])
+    assert bool(left.any()) and bool((got[left] == DEV_INF).all())
+
+
+@pytest.mark.cuda
+def test_module_scan_kernel_refuses_too_wide_a_module(cuda):
+    g = torch.Generator().manual_seed(9)
+    t = [a.to(cuda) for a in scan_inputs(g, 2, 1, 2049, 2)]
+    with pytest.raises(ValueError):
+        module_scan(*t, fwd=True, allow_sdel=True)
+    with pytest.raises(ValueError):
+        module_scan(*t[:-1], t[-1][:, :1], fwd=True, allow_sdel=True)
+
+
+@pytest.mark.cuda
+def test_module_scan_kernel_refuses_a_finite_skip_from(cuda):
+    g = torch.Generator().manual_seed(10)
+    t = [a.to(cuda) for a in scan_inputs(g, 2, 1, 9, 2)]
+    with pytest.raises(ValueError):
+        module_scan(*t, fwd=True, allow_sdel=True, skip_from=12345)

@@ -6,7 +6,10 @@
     the same-sequence scan against ``_same_module_jit``;
   * the chunk driver (module + assembly + min-fold) and the fold into the
     reentry field against ``_kind_all_chunks`` + ``_fold_kind_cells``;
-  * the reentry field's independence of the chunk size.
+  * the reentry field's independence of the chunk size;
+  * the arithmetic of the kernel's skipping mode (no card needed):
+    ``dead_state_threshold`` is sound on the plain version's results, is off
+    when it would overflow, and ``equal_mod_inf`` compares as it says.
 The CUDA kernel itself is held against the plain version on the card by
 test_torch_kernels.py.
 """
@@ -31,7 +34,8 @@ from tsalign_tpu.ops.pallas_module import module_scan_pallas
 from tsalign_tpu.ops.tsm_modules import make_kind_spec
 from tsalign_tpu_torch.convert import config_from_reference
 from tsalign_tpu_torch.ops import tsm_modules as port_tsm
-from tsalign_tpu_torch.ops.common import DEV_INF
+from tsalign_tpu_torch.ops.common import (DEV_INF, DEV_INF_THRESH, dead_state_threshold,
+                                          equal_mod_inf, sat_add)
 from tsalign_tpu_torch.ops.module_scan import module_scan
 from tsalign_tpu_torch.ops.modules import (
     KindModule,
@@ -224,3 +228,134 @@ def test_plain_module_scan_rejects_negative_deletion_extension():
     args[3] = args[3] - 3
     with pytest.raises(ValueError):
         module_scan_torch(*[torch.from_numpy(a) for a in args], fwd=True, allow_sdel=True)
+
+
+def _assert_dead_stays_dead(B, skip_from):
+    """After the first level whose exit minimum reaches skip_from, every
+    later entry of that (row, column) is infinite (>= 2^29): the kernel's
+    skipping mode may write DEV_INF there.  Returns how many entries that
+    covers."""
+    assert DEV_INF_THRESH <= skip_from <= DEV_INF
+    left = torch.cummax((B >= skip_from).int(), dim=0).values.bool()
+    assert bool((B[left] >= DEV_INF_THRESH).all())
+    return int(left.sum())
+
+
+@pytest.mark.parametrize("fwd", [True, False])
+@pytest.mark.parametrize("allow_sdel", [True, False])
+@pytest.mark.parametrize("seed,neg_sdo", [(0, False), (1, False), (2, True), (3, True)])
+def test_dead_state_threshold_is_sound_on_random_inputs(fwd, allow_sdel, seed, neg_sdo):
+    # The ranges of chip_smoke.py::module_inputs: LUT, io and ie down to -1,
+    # a quarter of the rows dead at level 0, a quarter dying at a random level.
+    NB, C, W, L, A = 12, 3, 37, 24, 6
+    rng = np.random.default_rng(100 + seed)
+    seedT = rng.integers(L, L + 40, size=(NB, C, W)).astype(np.int32)
+    seedT[rng.random(seedT.shape) < 0.5] = DEV_INF
+    seedT[1::4] = DEV_INF
+    lut = rng.integers(-1, 7, size=(A, C, W)).astype(np.int32)
+    lut[A - 1] = DEV_INF
+    sdo = rng.integers(-2 if neg_sdo else 0, 6, size=(C, W)).astype(np.int32)
+    sde = rng.integers(0, 3, size=(C, W)).astype(np.int32)
+    pchar = rng.integers(0, A, size=(L, NB)).astype(np.int32)
+    pmask = np.where(rng.random((L, NB)) < 0.02, DEV_INF, 0).astype(np.int32)
+    cut = rng.integers(0, L + 1, size=NB)
+    dying = (np.arange(L)[:, None] >= cut[None, :]) & (np.arange(NB)[None, :] % 4 == 3)
+    pmask[dying] = DEV_INF
+    pgo = rng.integers(-1, 6, size=A).astype(np.int32)
+    pge = rng.integers(-1, 3, size=A).astype(np.int32)
+    io = np.minimum(pgo[pchar].astype(np.int64) + pmask, DEV_INF).astype(np.int32)
+    ie = np.minimum(pge[pchar].astype(np.int64) + pmask, DEV_INF).astype(np.int32)
+    skip_from = dead_state_threshold(lut, sdo, pmask, io, ie, L, allow_sdel=allow_sdel)
+    drop = 1 + (2 if neg_sdo and allow_sdel else 0)
+    assert skip_from == DEV_INF_THRESH + (L + 1) * drop
+    # per-char insertion costs give the same threshold as the per-level ones
+    assert skip_from == dead_state_threshold(lut, sdo, pmask, pgo, pge, L, allow_sdel=allow_sdel)
+    B = module_scan_torch(*[torch.from_numpy(a) for a in
+                            (seedT, lut, sdo, sde, pchar, pmask, io, ie)],
+                          fwd=fwd, allow_sdel=allow_sdel)
+    assert _assert_dead_stays_dead(B, skip_from) > NB * C  # rows die at many levels
+    # the plain version's dead states drift below DEV_INF: the band is needed
+    assert bool(((B >= DEV_INF_THRESH) & (B < DEV_INF)).any())
+
+
+@pytest.mark.parametrize("pk", [0, 1])
+@pytest.mark.parametrize("dk", [0, 1])
+def test_dead_state_threshold_is_sound_on_the_default_tables(pk, dk):
+    """The K-scaled default config's real cross-kind tables for a 40 x 40
+    pair: the tie-break bonus makes the lowest LUT entry -1, so the main
+    path skips from 2^29 + L + 1."""
+    cfg = config_from_reference(_configs()["default_scaled"])
+    rng = np.random.default_rng(40 + 2 * pk + dk)
+    ref = rng.integers(0, 4, size=40).astype(np.int8)
+    qry = ref.copy()
+    qry[rng.integers(0, 40, size=4)] = rng.integers(0, 4, size=4)
+    spec = port_tsm.make_kind_spec(cfg, 40, 40, pk, 1 - pk, dk, sdel_budget=16)
+    km = KindModule(spec, cfg, ref, qry, 0, 40, chunk=8)
+    assert km.active and not km.same_seq
+    assert km.skip_from == DEV_INF_THRESH + km.L + 1
+    A_cells = rng.integers(0, 60, size=(41, 41)).astype(np.int32)
+    A_cells[rng.random(A_cells.shape) < 0.6] = DEV_INF
+    A_cells[::3] = DEV_INF  # pruned entry rows: dead at level 0
+    t = km.tables("cpu")
+    sl = slice(8, 16)
+    seedT = sat_add(torch.from_numpy(A_cells)[:, sl][:, :, None], t["seed"][sl][None, :, :])
+    B = module_scan_torch(seedT.contiguous(), t["lut"][:, sl].contiguous(),
+                          t["sdo"][sl].contiguous(), t["sde"][sl].contiguous(),
+                          t["pchar_l"], t["pmask_l"], t["io_l"], t["ie_l"],
+                          fwd=dk == 0, allow_sdel=km.allow_sdel)
+    assert bool((B < DEV_INF_THRESH).any())
+    # every problem dies: the primary runs out at level n_p - p at the latest
+    assert _assert_dead_stays_dead(B, km.skip_from) >= B[0].numel()
+
+
+@pytest.mark.parametrize("fwd", [True, False])
+def test_dead_state_threshold_is_nearly_tight(fwd):
+    """A LUT of -1 lowers a lone seed by one a level.  A seed just under
+    2^29 + L comes back below 2^29 at level L, so no threshold under that is
+    sound; `dead_state_threshold` gives 2^29 + L + 1, and a seed there stays
+    infinite."""
+    NB, C, W, L, A = 2, 1, 9, 6, 2
+    seedT = np.full((NB, C, W), DEV_INF, dtype=np.int32)
+    seedT[0, 0, 0 if fwd else W - 1] = DEV_INF_THRESH + L - 1
+    seedT[1, 0, 0 if fwd else W - 1] = DEV_INF_THRESH + L + 1
+    lut = np.full((A, C, W), -1, dtype=np.int32)
+    zeros_cw = np.zeros((C, W), dtype=np.int32)
+    zeros_l = np.zeros((L, NB), dtype=np.int32)
+    big_l = np.full((L, NB), DEV_INF, dtype=np.int32)
+    skip_from = dead_state_threshold(lut, zeros_cw, zeros_l, big_l, big_l, L, allow_sdel=True)
+    assert skip_from == DEV_INF_THRESH + L + 1
+    B = module_scan_torch(*[torch.from_numpy(a) for a in
+                            (seedT, lut, zeros_cw, zeros_cw, zeros_l, zeros_l, big_l, big_l)],
+                          fwd=fwd, allow_sdel=True)
+    assert B[:, 0, 0].tolist() == [DEV_INF_THRESH + L - 1 - l for l in range(L + 1)]
+    assert int(B[0, 0, 0]) < skip_from and int(B[L, 0, 0]) == DEV_INF_THRESH - 1
+    assert int(B[0, 1, 0]) == skip_from
+    _assert_dead_stays_dead(B, skip_from)
+
+
+@pytest.mark.parametrize("lowest,L,expect", [
+    (0, 500, DEV_INF_THRESH),                      # nothing negative: skip from 2^29
+    (-1, 500, DEV_INF_THRESH + 501),
+    (-(2**20), 510, DEV_INF_THRESH + 511 * 2**20),   # the last L that fits
+    (-(2**20), 511, 0),                            # (L + 1) * drop = 2^29: off
+    (-(2**29), 1, 0),
+])
+def test_dead_state_threshold_is_off_when_it_overflows(lowest, L, expect):
+    lut = np.array([[[3, lowest]]], dtype=np.int32)
+    zero = np.zeros((1, 1), dtype=np.int32)
+    assert dead_state_threshold(lut, zero, zero, zero, zero, L, allow_sdel=True) == expect
+
+
+@pytest.mark.parametrize("got,want,equal", [
+    ([0, 5, -3, 2**29 - 1], [0, 5, -3, 2**29 - 1], True),      # equal below 2^29
+    ([7, DEV_INF], [7, DEV_INF - 4], True),                     # band-tolerant above
+    ([7, 2**29], [7, DEV_INF], True),
+    ([7, 2**29 - 1], [7, DEV_INF], False),                      # finite against infinite
+    ([7, DEV_INF], [7, 2**29 - 1], False),                      # infinite against finite
+    ([6, DEV_INF], [7, DEV_INF], False),                        # a finite value differs
+])
+def test_equal_mod_inf(got, want, equal):
+    g = torch.tensor(got, dtype=torch.int32)
+    w = torch.tensor(want, dtype=torch.int32)
+    assert equal_mod_inf(g, w) is equal
+    assert equal_mod_inf(g.view(-1, 1), w) is False  # another shape

@@ -5,6 +5,8 @@ At first use, every ``csrc/*.cu`` is compiled with ``nvcc`` for Hopper
 ``nvcc`` process per source and all of them started together, written to
 ``tsalign_tpu_torch/_build/`` (listed in ``.gitignore``) under the hash of the
 source, and loaded with ``ctypes``.  A library whose hash matches is reused.
+``ptxas -v`` runs with every build and its report (registers, spills and
+shared memory of each kernel) is kept beside the library; `resources` reads it.
 Each C entry point takes raw device pointers, ints and the CUDA stream, and
 returns ``cudaGetLastError()`` after its launch; `check` raises on a nonzero
 code.  Nothing here falls back: a missing ``nvcc`` or a failed build raises.
@@ -16,6 +18,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import types
@@ -25,7 +28,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-split-compile=0",  # the module scan's 64 instantiations, on every core
 ]
 
 # Kernel launches per wrapper name: each wrapper adds one where it launches
@@ -45,8 +49,8 @@ _SIGNATURES = {
     # row_stride, plane_stride, stream
     "tsa_sweep_flanked": ("sweep_flanked", [_P] * 6 + [_I] * 5 + [_LL] * 2 + [_P]),
     # seedT, lut, sdo, sde, pchar, pmask, io, ie, out,
-    # NB, C, W, L, A, fwd, allow_sdel, stream
-    "tsa_module_scan": ("module_scan", [_P] * 9 + [_I] * 7 + [_P]),
+    # NB, C, W, L, A, fwd, allow_sdel, skip_from, stream
+    "tsa_module_scan": ("module_scan", [_P] * 9 + [_I] * 8 + [_P]),
 }
 
 
@@ -81,6 +85,7 @@ def library():
         if proc.returncode != 0:
             failures.append(f"nvcc failed ({proc.returncode}) on {so.name}:\n{stdout}\n{stderr}")
         else:
+            so.with_suffix(".log").write_text(stderr)
             os.replace(tmp, so)
     if failures:
         raise RuntimeError("\n".join(failures))
@@ -91,8 +96,25 @@ def library():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         setattr(lib, name, fn)
+    lib.paths = {stem: str(so) for stem, so in targets.items()}
     _lib = lib
     return lib
+
+
+_PTXAS = re.compile(
+    r"Compiling entry function '(?P<name>\w+)'.*?"
+    r"(?P<stack>\d+) bytes stack frame, (?P<st>\d+) bytes spill stores, "
+    r"(?P<ld>\d+) bytes spill loads.*?Used (?P<regs>\d+) registers", re.S)
+
+
+def resources(stem: str) -> list:
+    """What ``ptxas -v`` reported when ``csrc/<stem>.cu`` was built: one dict
+    for each kernel with its mangled name, registers a thread, stack frame
+    and spill bytes, in the order of the report."""
+    log = Path(library().paths[stem]).with_suffix(".log").read_text()
+    return [dict(name=m["name"], registers=int(m["regs"]), stack=int(m["stack"]),
+                 spill_stores=int(m["st"]), spill_loads=int(m["ld"]))
+            for m in _PTXAS.finditer(log)]
 
 
 def check(code: int, what: str) -> None:

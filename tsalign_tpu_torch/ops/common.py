@@ -51,6 +51,39 @@ def validate_magnitudes(max_finite_cost: int, path_length: int) -> None:
         )
 
 
+def dead_state_threshold(lut, sdo, pmask, io, ie, L: int, *, allow_sdel: bool) -> int:
+    """The least state minimum from which a problem of the module scan can
+    never come back below DEV_INF_THRESH within L levels, or 0 when there is
+    no such value <= DEV_INF (then the kernel must not skip).
+
+    One level moves a value through at most one step cost (a LUT entry, io
+    or ie, each with the level's mask added) and, with secondary deletions,
+    one open cost sdo and chain extensions sde >= 0; every add is clamped
+    from above only.  So a level lowers the state's minimum by at most
+    ``drop = max(0, -(min(lut, io, ie) + min(pmask, 0))) + max(0, -min(sdo))``,
+    and a state >= DEV_INF_THRESH + (L + 1) * drop stays >= DEV_INF_THRESH
+    through every later level.  The arguments are the kind's whole tables
+    (numpy arrays or tensors of any shape; io and ie per level or per
+    primary char): the bound holds for every chunk."""
+    def lo(x):
+        x = np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+        return int(x.min()) if x.size else 0
+
+    step = min(lo(lut), lo(io), lo(ie)) + min(lo(pmask), 0)
+    drop = max(0, -step) + (max(0, -lo(sdo)) if allow_sdel else 0)
+    skip_from = DEV_INF_THRESH + (L + 1) * drop
+    return skip_from if skip_from <= DEV_INF else 0
+
+
+def equal_mod_inf(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Whether `got` equals `want` up to the infinite band: equal wherever
+    `want` is below DEV_INF_THRESH, and >= DEV_INF_THRESH wherever `want` is."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    finite = want < DEV_INF_THRESH
+    return bool(torch.all(torch.where(finite, got == want, got >= DEV_INF_THRESH)))
+
+
 def full_inf(shape, device) -> torch.Tensor:
     return torch.full(shape, DEV_INF, dtype=I32, device=device)
 

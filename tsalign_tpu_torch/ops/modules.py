@@ -35,6 +35,7 @@ from .common import (
     DEV_INF,
     I32,
     check_extension,
+    dead_state_threshold,
     full_inf,
     minplus_scan,
     sat_add,
@@ -172,6 +173,11 @@ class KindModule:
             pvalid, P[np.clip(pidx, 0, max(n_p - 1, 0))].astype(np.int32), 0
         ).astype(np.int32)
         self.pmask_l = np.where(pvalid, 0, DEV_INF).astype(np.int32)
+        # From this state minimum on, a problem of the module scan is dead
+        # for good and the kernel may leave it (0: never).
+        self.skip_from = dead_state_threshold(
+            self.sub_lut, self.sdel_open, self.pmask_l, self.pgap_open, self.pgap_ext,
+            L, allow_sdel=self.allow_sdel)
 
         # --- assembly statics ---
         lv = to_device_costs(
@@ -407,7 +413,7 @@ def kind_chunk(km: KindModule, A_mod, e_base: int, t: dict, B_pre=None):
             seedT.contiguous(), t["lut"][:, sl].contiguous(),
             t["sdo"][sl].contiguous(), t["sde"][sl].contiguous(),
             t["pchar_l"], t["pmask_l"], t["io_l"], t["ie_l"],
-            fwd=km.dk == 0, allow_sdel=km.allow_sdel,
+            fwd=km.dk == 0, allow_sdel=km.allow_sdel, skip_from=km.skip_from,
         )
     return assembly_torch(B, A_chunk, km, t)
 
