@@ -5,13 +5,18 @@
 
 Phases, each ending with a line of its wall time (phase_s):
   1. the card (nvidia-smi name and power limit), torch/CUDA versions, the
-     build of the CUDA kernels from tsalign_tpu_torch/csrc, and what ptxas
+     build of the CUDA kernels from tsalign_tpu_torch/csrc, what ptxas
      and cuobjdump say of the module scan (registers and spills of every
-     instantiation, DPX instructions in its SASS);
+     instantiation, DPX instructions in its SASS) and ptxas of the sweep's
+     instantiations, and the latency of one dependent DPX instruction (a
+     one-thread loop in csrc/sweep.cu) with the SM clock it ran at;
   2. each kernel against its plain torch version on the card (torch.equal,
      tolerance 0) on seeded inputs holding DEV_INF and DEV_INF - 1, timed
-     with CUDA events; the flanked sweep for six (L, R, climb) settings and
-     in both seed layouts; the module scan in both of its modes (the exact
+     with CUDA events; the sweeps in both seed layouts, the flanked one for
+     six (L, R, climb) settings, and both at the edges of a super-tile and of
+     a block's eight, with the launch's warps and with fewer, on negative
+     seeds beside infinite ones, and many rows over and over on scratch
+     buffers that hold noise; the module scan in both of its modes (the exact
      mode by torch.equal, the skipping mode by equal_mod_inf: equal below
      2^29, infinite where the plain version is) on inputs a part of whose
      problems die (infinite seed rows, a mask that turns infinite);
@@ -45,7 +50,12 @@ and {"ok": true, "device": {...}}.
 In the kernels' record, bound_ms is the least time the card could take for
 the compared call: the larger of its bytes (every input read once, the
 output written once) over 3.35 TB/s and its integer min/add operations over
-33.5e12 a second.  The module scan's skipping mode counts the levels its
+33.5e12 a second.  For the sweeps a third time is taken beside the two, the
+dependency chain: cell (row, layer, column) needs its left neighbour, so the
+longest path runs through n_rows + Wq + F - 2 cells, each two dependent
+integer instructions (the chain's clamped add and min in one DPX instruction,
+and the open's), at the latency phase 1 measured; no wavefront of one pair
+can run faster, and bound_by then reads "chain".  The module scan's skipping mode counts the levels its
 inputs need: for each problem those up to the first whose exit minimum in the
 plain result reaches skip_from (the kernel's own criterion).  That integer
 rate is the H100's float32 peak outside the tensor cores (67 TFLOP/s: 132 SMs
@@ -60,6 +70,7 @@ wavefront or the module scan.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import re
@@ -84,8 +95,9 @@ from tsalign_tpu_torch.ops.common import (DEV_INF, DEV_INF_THRESH, dead_state_th
                                           equal_mod_inf, sat_add)
 from tsalign_tpu_torch.ops.module_scan import module_scan
 from tsalign_tpu_torch.ops.modules import module_scan_torch
-from tsalign_tpu_torch.ops.sweep import (sweep_flanked, sweep_flanked_torch, sweep_flankless,
-                                         sweep_flankless_torch)
+from tsalign_tpu_torch.ops import sweep as sweep_ops
+from tsalign_tpu_torch.ops.sweep import (dpx_chain_clocks, sweep_flanked, sweep_flanked_torch,
+                                         sweep_flankless, sweep_flankless_torch)
 from tsalign_tpu_torch.oracle import OracleAligner
 from tsalign_tpu_torch.pricing import price_alignment
 
@@ -102,12 +114,12 @@ INT32_OPS_PER_S = 67e12 / 4 * 2  # 64 of an SM's 128 lanes, two operations a DPX
 KERNELS = {
     "sweep_flankless": {
         "route": "cuda",
-        "source": "tsalign_tpu_torch/csrc/sweep_flankless.cu",
+        "source": "tsalign_tpu_torch/csrc/sweep.cu",
         "replaces": "tsalign_tpu/ops/pallas_sweep.py:238",
     },
     "sweep_flanked": {
         "route": "cuda",
-        "source": "tsalign_tpu_torch/csrc/sweep_flanked.cu",
+        "source": "tsalign_tpu_torch/csrc/sweep.cu",
         "replaces": "tsalign_tpu/ops/pallas_sweep.py:392",
     },
     "module_scan": {
@@ -117,6 +129,8 @@ KERNELS = {
     },
 }
 max_err = {name: None for name in KERNELS}
+# Nanoseconds of one dependent DPX instruction; phase 1 measures it.
+dpx_ns = {"clocks": None, "sm_mhz": None, "ns": None}
 
 
 def say(phase, **numbers):
@@ -217,12 +231,18 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: int, n_ops: int):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    integer operations over the int32 rate (see the module docstring)."""
-    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_ops / INT32_OPS_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+def bound(n_bytes: int, n_ops: int, chain_cells: int = 0):
+    """(bound_ms, bound_by): the largest of bytes over the memory rate,
+    integer operations over the int32 rate and, for a wavefront, the cells
+    of its longest dependency path times two dependent DPX instructions at
+    the measured latency (see the module docstring)."""
+    times = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3, "operations": n_ops / INT32_OPS_PER_S * 1e3}
+    if chain_cells:
+        if dpx_ns["ns"] is None:
+            raise AssertionError("the DPX latency was not measured (phase 1)")
+        times["chain"] = chain_cells * 2 * dpx_ns["ns"] * 1e-6
+    by = max(times, key=times.get)
+    return times[by], by
 
 
 # Integer operations (add or min) a cell needs, counted from the recurrences:
@@ -238,17 +258,18 @@ SWEEP_OPS_PER_CELL = 19
 SCAN_CLOSE_OPS, SCAN_EMIT_OPS, SCAN_STEP_OPS = 6, 3, 12
 
 
-def sweep_flankless_bound(sub_rows, dd, seeds, io, ie):
-    cells = sub_rows.shape[0] * sub_rows.shape[1]
+def sweep_flankless_bound(sub_rows, dd, seeds, io, ie, chain=True):
+    n_rows, Wq = sub_rows.shape
     return bound(nbytes(sub_rows, dd, seeds, io, ie) + nbytes(seeds),
-                 cells * SWEEP_OPS_PER_CELL)
+                 n_rows * Wq * SWEEP_OPS_PER_CELL, (n_rows + Wq - 1) if chain else 0)
 
 
-def sweep_flanked_bound(subs, dd, seeds, io, ie, *, L, R, climb):
-    cells = subs.shape[1] * subs.shape[2]
+def sweep_flanked_bound(subs, dd, seeds, io, ie, *, L, R, climb, chain=True):
+    _, n_rows, Wq = subs.shape
     climbing = R + (L if climb else 0)
     return bound(nbytes(subs, dd, seeds, io, ie) + nbytes(seeds),
-                 cells * SWEEP_OPS_PER_CELL * (1 + climbing))
+                 n_rows * Wq * SWEEP_OPS_PER_CELL * (1 + climbing),
+                 (n_rows + Wq + L + R - 1) if chain else 0)
 
 
 def module_scan_bound(seedT, lut, sdo, sde, pchar, pmask, io, ie, *, allow_sdel,
@@ -335,6 +356,37 @@ def module_scan_build_report():
         raise AssertionError("module_scan: no DPX instruction in the SASS")
 
 
+def sweep_build_report():
+    """ptxas's registers, stack and spill bytes of each sweep instantiation:
+    K (columns a lane), F = 1 or F > 1, and whether it holds the hand-over
+    through the scratch rows (more super-tiles than warps: "cross")."""
+    per = {}
+    for r in _build.resources("sweep"):
+        m = re.search(r"sweep_kernelILi(\d+)ELb(\d)ELb(\d)E", r["name"])
+        if m:
+            name = f"K{m.group(1)}_{'flanked' if m.group(2) == '1' else 'flankless'}"
+            per[name + ("_cross" if m.group(3) == "1" else "")] = [
+                r["registers"], r["stack"], r["spill_stores"] + r["spill_loads"]]
+    if len(per) != 4:
+        raise AssertionError(f"sweep: ptxas reported {sorted(per)}")
+    say(1, sweep_registers_stack_spill=per,
+        instantiations_spilling=sorted(k for k, v in per.items() if v[2]))
+
+
+def measure_dpx_latency():
+    """Clocks of one dependent __viaddmin_s32 (a one-thread loop of 2^26 in
+    csrc/sweep.cu, a few times) and the SM clock nvidia-smi saw meanwhile."""
+    clocks, card = under_load(lambda: min(dpx_chain_clocks(DEV, 1 << 26) for _ in range(3)))
+    mhz = card.get("sm_mhz_median")
+    if not mhz:
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True).stdout.split()[0])
+    dpx_ns.update(clocks=clocks, sm_mhz=mhz, ns=clocks / mhz * 1e3)
+    say(1, dpx_dependent_clocks_an_instruction=clocks, sm_mhz_sampled=mhz,
+        dpx_dependent_ns=dpx_ns["ns"], card_under_load=card)
+
+
 def phase1():
     t0 = time.monotonic()
     _build.library()
@@ -342,14 +394,113 @@ def phase1():
         python=sys.version.split()[0], build_s=time.monotonic() - t0,
         devices=torch.cuda.device_count())
     module_scan_build_report()
+    sweep_build_report()
+    measure_dpx_latency()
+
+
+def plane_major(seeds):
+    """The (n_rows, planes, Wq) view of a plane-major copy of `seeds`."""
+    return seeds.permute(1, 0, 2).contiguous().permute(1, 0, 2)
+
+
+def negate_some(seeds):
+    """Seeds with a part of the finite entries negative (a tie-break bonus
+    can make a seed negative), beside the DEV_INF and DEV_INF - 1 ones."""
+    return torch.where((seeds < 30) & (seeds % 3 == 0), -seeds, seeds)
+
+
+def with_warps(name, warps, tables, seeds, kw):
+    """The sweep `name` with the launch's warps (0: through its wrapper) or
+    held to fewer (through the wrapper's launch)."""
+    subs, dd, io, ie = tables
+    if not warps:
+        return (sweep_flanked if kw else sweep_flankless)(subs, dd, seeds, io, ie, **kw)
+    flanks = (kw["L"], kw["R"], kw["climb"]) if kw else (0, 0, False)
+    return sweep_ops._launch(name, subs, dd, seeds, io, ie, *flanks, warps=warps)
+
+
+def sweep_strip_edges(gen):
+    """Both sweeps at the edges of a super-tile (128 columns) and of a
+    block's eight (1024: one more goes through the scratch rows), at one
+    column and beyond, with the launch's warps and held to 1 and 3 (a warp
+    then takes several super-tiles in turn), for one row and for several,
+    the flanked sweep up to F = 16, in both seed layouts, on negative seeds
+    beside infinite ones."""
+    widths = [1, 127, 128, 129, 700, 1023, 1024, 1025, 1500]
+    warps_held = [0, 1, 3]
+    compared = 0
+    for Wq in widths:
+        for n_rows in (1, 23):
+            sub, dd, seeds, io, ie = sweep_inputs(gen, n_rows, Wq)
+            cases = [("sweep_flankless", (sub, dd, io, ie), negate_some(seeds), {})]
+            for L, R, climb in ((2, 2, True), (0, 3, False), (7, 8, True)):
+                a = flanked_sweep_inputs(gen, n_rows, Wq, L + R + 1)
+                cases.append(("sweep_flanked", (a[0], a[1], a[3], a[4]), negate_some(a[2]),
+                              dict(L=L, R=R, climb=climb)))
+            for name, (subs, dd, io, ie), seeds, kw in cases:
+                plain = sweep_flanked_torch if kw else sweep_flankless_torch
+                want = plain(subs, dd, seeds, io, ie, **kw)
+                for warps in warps_held:
+                    what = f"warps={warps} n_rows={n_rows} Wq={Wq} {kw}"
+                    compare(name, with_warps(name, warps, (subs, dd, io, ie), seeds, kw), want, what)
+                    compare(name, with_warps(name, warps, (subs, dd, io, ie), plane_major(seeds),
+                                             kw).contiguous(), want, what + " plane-major")
+                    compared += 2
+    say(2, kernel="sweep", strip_edges=True, widths=widths, warps=warps_held, compared=compared,
+        equal=True)
+
+
+def scratch_noise(n_rows, Wq, F):
+    """Leave noise of any sign where the allocator will put the next launch's
+    two scratch buffers: the wavefront computes on what they hold outside
+    the field, and none of it may reach a cell of the field."""
+    n_in, n_out = ctypes.c_longlong(), ctypes.c_longlong()
+    _build.check(_build.library().tsa_sweep_scratch(n_rows, Wq, F, ctypes.byref(n_in),
+                                                    ctypes.byref(n_out)), "scratch")
+    noise = [torch.randint(-2**31, 2**31 - 1, (n.value,), dtype=torch.int32, device=DEV)
+             for n in (n_in, n_out)]
+    torch.cuda.synchronize()
+    del noise
+
+
+def sweep_hand_over_stress(gen, repeats=10):
+    """Many rows through 8 warps, over and over, each run on scratch buffers
+    that hold noise: the hand-over of the last columns between warps through
+    shared memory (1024 columns) and through the scratch rows (1500)."""
+    n_rows = 1200
+    for Wq in (1024, 1500):
+        sub, dd, seeds, io, ie = sweep_inputs(gen, n_rows, Wq)
+        a = flanked_sweep_inputs(gen, n_rows, Wq, 5)
+        for name, tables, seeds, kw in (
+                ("sweep_flankless", (sub, dd, io, ie), negate_some(seeds), {}),
+                ("sweep_flanked", (a[0], a[1], a[3], a[4]), negate_some(a[2]),
+                 dict(L=2, R=2, climb=True))):
+            plain = sweep_flanked_torch if kw else sweep_flankless_torch
+            want = plain(tables[0], tables[1], seeds, tables[2], tables[3], **kw)
+            for i in range(repeats):
+                scratch_noise(n_rows, Wq, seeds.shape[1] // 3)
+                compare(name, with_warps(name, 0, tables, seeds, kw), want,
+                        f"stress n_rows={n_rows} Wq={Wq} run {i}")
+    say(2, kernel="sweep", hand_over_stress=True, n_rows=n_rows, widths=[1024, 1500],
+        repeats=repeats, scratch_holds_noise=True, equal=True)
 
 
 def phase2():
     gen = torch.Generator().manual_seed(2)
+    phase2_sweeps(gen)
+    phase2_scan(gen)
+
+
+def phase2_sweeps(gen):
     for n_rows, Wq in ((17, 1), (40, 33), (1001, 1001), (300, 2100)):
         args = sweep_inputs(gen, n_rows, Wq)
-        compare("sweep_flankless", sweep_flankless(*args), sweep_flankless_torch(*args),
-                f"n_rows={n_rows} Wq={Wq}")
+        want = sweep_flankless_torch(*args)
+        compare("sweep_flankless", sweep_flankless(*args), want, f"n_rows={n_rows} Wq={Wq}")
+        planes = plane_major(args[2])
+        got = sweep_flankless(args[0], args[1], planes, args[3], args[4])
+        if got.stride() != planes.stride():
+            raise AssertionError("sweep_flankless: plane-major seeds gave another layout")
+        compare("sweep_flankless", got.contiguous(), want, f"n_rows={n_rows} Wq={Wq} plane-major")
         say(2, kernel="sweep_flankless", n_rows=n_rows, Wq=Wq, equal=True,
             ms=cuda_ms(lambda: sweep_flankless(*args), 10),
             plain_ms=cuda_ms(lambda: sweep_flankless_torch(*args), 1))
@@ -362,7 +513,7 @@ def phase2():
             what = f"L={L} R={R} climb={climb} n_rows={n_rows} Wq={Wq}"
             compare("sweep_flanked", sweep_flanked(subs, dd, seeds, io, ie, **kw), want, what)
             # the engine's plane-major layout, read and written in place
-            planes = seeds.permute(1, 0, 2).contiguous().permute(1, 0, 2)
+            planes = plane_major(seeds)
             got = sweep_flanked(subs, dd, planes, io, ie, **kw)
             if got.stride() != planes.stride():
                 raise AssertionError(f"sweep_flanked {what}: plane-major seeds gave another layout")
@@ -371,6 +522,11 @@ def phase2():
                 equal=True,
                 ms=cuda_ms(lambda: sweep_flanked(subs, dd, seeds, io, ie, **kw), 10),
                 plain_ms=cuda_ms(lambda: sweep_flanked_torch(subs, dd, seeds, io, ie, **kw), 1))
+    sweep_strip_edges(gen)
+    sweep_hand_over_stress(gen)
+
+
+def phase2_scan(gen):
     # (NB, C, W, L): the shapes held since the first slice, then widths at
     # the edges of a lane's run (W = 32 K and its neighbours), the main
     # path's, a 1000-bp pair's and the widest, on NB not a multiple of the
@@ -524,6 +680,42 @@ def phase4():
                 cost=p["cost"], equal=True)
 
 
+def sweep_call_parts(call, n_rows, Wq, F, reps=20):
+    """What one wrapper call of a sweep is made of: device microseconds of
+    each of its three kernels (torch.profiler), and on the host's clock the
+    microseconds to queue a call and, of those, to allocate its two scratch
+    buffers (the allocator hands back the blocks of the call before)."""
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    kernels_us = {}
+    for e in prof.key_averages():
+        for part in ("skew_in_kernel", "sweep_kernel", "skew_out_kernel"):
+            if part in e.key:
+                kernels_us[part] = kernels_us.get(part, 0.0) + e.device_time_total / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    queue_us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    n_in, n_out = ctypes.c_longlong(), ctypes.c_longlong()
+    _build.check(_build.library().tsa_sweep_scratch(n_rows, Wq, F, ctypes.byref(n_in),
+                                                    ctypes.byref(n_out)), "scratch")
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        a = torch.empty(n_in.value, dtype=torch.int32, device=DEV)
+        b = torch.empty(n_out.value, dtype=torch.int32, device=DEV)
+        del a, b
+    alloc_us = (time.perf_counter() - t0) / reps * 1e6
+    return dict(kernels_us=kernels_us or "not measured (the profiler saw no kernel)",
+                host_queue_us_a_call=queue_us, host_scratch_alloc_us_a_call=alloc_us,
+                scratch_bytes=[4 * n_in.value, 4 * n_out.value])
+
+
 def phase5():
     # 500 x 420 (the heli scale), not 1000 x 1000: see PERF.md, section 4,
     # for the measured times that rule the larger pair out of the 1200 s run.
@@ -569,7 +761,7 @@ def phase5_shapes(r, q):
     eng = TorchAligner(cfg, al.encode(r), al.encode(q), device=DEV)
     root = eng._root_seeds()
     sub_rows, dd, io, ie = eng._get_sweep(True)._inputs_on(root.device)
-    seeds = root[0].permute(1, 0, 2).contiguous()
+    seeds = root[0].permute(1, 0, 2)  # the engine's plane-major field, in place
     args = (sub_rows, dd, seeds, io, ie)
     compare("sweep_flankless", sweep_flankless(*args), sweep_flankless_torch(*args), "main shapes")
     timings = {"sweep_flankless": (cuda_ms(lambda: sweep_flankless(*args), 20),
@@ -577,7 +769,9 @@ def phase5_shapes(r, q):
                                    *sweep_flankless_bound(*args))}
     say(5, kernel="sweep_flankless", shape=list(seeds.shape), equal=True,
         ms=timings["sweep_flankless"][0], plain_ms=timings["sweep_flankless"][1],
-        bound_ms=timings["sweep_flankless"][2], bound_by=timings["sweep_flankless"][3])
+        bound_ms=timings["sweep_flankless"][2], bound_by=timings["sweep_flankless"][3],
+        bytes_or_operations_bound=sweep_flankless_bound(*args, chain=False),
+        **sweep_call_parts(lambda: sweep_flankless(*args), seeds.shape[0], seeds.shape[2], 1))
 
     for km, e_base, margs in main_pair_chunks(eng, root):
         kw = dict(fwd=km.dk == 0, allow_sdel=km.allow_sdel)
@@ -712,7 +906,9 @@ def phase6_shapes(r, q):
         bound_ms, bound_by = sweep_flanked_bound(*args, **kw)
         seeded = int((seeds4 < DEV_INF).sum())
         say(6, kernel="sweep_flanked", seeds=what, shape=list(seeds.shape), finite_seeds=seeded,
-            equal=True, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+            equal=True, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            bytes_or_operations_bound=sweep_flanked_bound(*args, **kw, chain=False),
+            **sweep_call_parts(lambda: sweep_flanked(*args, **kw), n_rows, Wq, F))
         out = (ms, plain_ms, bound_ms, bound_by)
     return {"sweep_flanked": out}
 

@@ -21,6 +21,7 @@ from tsalign_tpu_torch.ops.common import (DEV_INF, DEV_INF_THRESH, dead_state_th
                                           equal_mod_inf, sat_add)
 from tsalign_tpu_torch.ops.module_scan import module_scan
 from tsalign_tpu_torch.ops.modules import module_scan_torch
+from tsalign_tpu_torch.ops import sweep as sweep_ops
 from tsalign_tpu_torch.ops.sweep import (sweep_flanked, sweep_flanked_torch, sweep_flankless,
                                          sweep_flankless_torch)
 
@@ -81,6 +82,112 @@ def test_flanked_sweep_kernel_matches_plain_on_card(cuda, n_rows, Wq, L, R, clim
     planes = seeds.permute(1, 0, 2).contiguous()
     got_p = sweep_flanked(subs, dd, planes.permute(1, 0, 2), io, ie, **kw)
     assert got_p.permute(1, 0, 2).is_contiguous() and torch.equal(got_p, want)
+
+
+# Widths at the edges of a super-tile (32 lanes of 4 columns), of a block's 8
+# super-tiles (one more goes through the scratch rows), and beyond.
+STRIP_EDGES = [1, 127, 128, 129, 700, 1023, 1024, 1025, 1500]
+# Warps a block: as the launch takes them (0), and held to fewer, so that a
+# warp takes several super-tiles in turn.
+WARPS = [0, 1, 3]
+
+
+def flankless_inputs(g, n_rows, Wq, negative=False):
+    sub = _costs(g, (n_rows, Wq), 0, 7, 0.02, 0.02)
+    dd = _costs(g, (n_rows, 2), 0, 6, 0.02)
+    seeds = _costs(g, (n_rows, 3, Wq), -40 if negative else 0, 60, 0.7 if negative else 0.9, 0.05)
+    io = _costs(g, (Wq,), 0, 6, 0.02)
+    ie = _costs(g, (Wq,), 0, 3, 0.02)
+    return sub, dd, seeds, io, ie
+
+
+def flankless_with(warps, sub, dd, seeds, io, ie):
+    if not warps:
+        return sweep_flankless(sub, dd, seeds, io, ie)
+    return sweep_ops._launch("sweep_flankless", sub, dd, seeds, io, ie, 0, 0, False, warps=warps)
+
+
+def flanked_with(warps, subs, dd, seeds, io, ie, *, L, R, climb):
+    if not warps:
+        return sweep_flanked(subs, dd, seeds, io, ie, L=L, R=R, climb=climb)
+    return sweep_ops._launch("sweep_flanked", subs, dd, seeds, io, ie, L, R, climb, warps=warps)
+
+
+def negate_some(seeds):
+    return torch.where((seeds < 30) & (seeds % 3 == 0), -seeds, seeds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warps", WARPS)
+@pytest.mark.parametrize("Wq", STRIP_EDGES)
+def test_sweep_kernel_strip_edges_on_card(cuda, Wq, warps):
+    """The edges of a super-tile and of a block's super-tiles, with the
+    launch's warps and with fewer (more super-tiles than warps), row- and
+    plane-major, on negative seeds beside infinite ones."""
+    for n_rows in (1, 37):
+        g = torch.Generator().manual_seed(Wq + n_rows)
+        args = [a.to(cuda) for a in flankless_inputs(g, n_rows, Wq, negative=True)]
+        want = sweep_flankless_torch(*args)
+        assert torch.equal(flankless_with(warps, *args), want)
+        planes = args[2].permute(1, 0, 2).contiguous().permute(1, 0, 2)
+        got = flankless_with(warps, args[0], args[1], planes, args[3], args[4])
+        assert got.stride() == planes.stride() and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warps", WARPS)
+@pytest.mark.parametrize("L,R,climb", [(2, 2, True), (0, 3, False), (7, 8, True)])
+@pytest.mark.parametrize("Wq", STRIP_EDGES)
+def test_flanked_sweep_kernel_strip_edges_on_card(cuda, Wq, L, R, climb, warps):
+    """As above for the flank layers, up to F = 16."""
+    for n_rows in (1, 19):
+        g = torch.Generator().manual_seed(Wq + n_rows + L)
+        subs, dd, seeds, io, ie = (a.to(cuda) for a in flanked_inputs(g, n_rows, Wq, L + R + 1))
+        seeds = negate_some(seeds)
+        kw = dict(L=L, R=R, climb=climb)
+        want = sweep_flanked_torch(subs, dd, seeds, io, ie, **kw)
+        assert torch.equal(flanked_with(warps, subs, dd, seeds, io, ie, **kw), want)
+        planes = seeds.permute(1, 0, 2).contiguous().permute(1, 0, 2)
+        assert torch.equal(flanked_with(warps, subs, dd, planes, io, ie, **kw), want)
+
+
+def fill_scratch_with_noise(n_rows, Wq, F, dev):
+    """Leave noise of any sign where the allocator will put the next launch's
+    two scratch buffers: the kernel computes on what they hold outside the
+    field, and none of it may reach a cell of the field."""
+    import ctypes
+    n_in, n_out = ctypes.c_longlong(), ctypes.c_longlong()
+    _build.check(_build.library().tsa_sweep_scratch(n_rows, Wq, F, ctypes.byref(n_in),
+                                                    ctypes.byref(n_out)), "scratch")
+    noise = [torch.randint(-2**31, 2**31 - 1, (n.value,), dtype=torch.int32, device=dev)
+             for n in (n_in, n_out)]
+    torch.cuda.synchronize()
+    del noise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,R", [(0, 0), (2, 2)])
+@pytest.mark.parametrize("Wq", [1024, 1500])
+def test_sweep_kernel_hand_over_between_warps_under_stress_on_card(cuda, Wq, L, R):
+    """Many rows through 8 warps, over and over, each time on scratch
+    buffers that hold noise: every run equals the plain version (the
+    hand-over of the last columns between warps, through shared memory and,
+    at 1500 columns, through the scratch rows)."""
+    n_rows, F = 1500, L + R + 1
+    g = torch.Generator().manual_seed(Wq + F)
+    if F == 1:
+        args = [a.to(cuda) for a in flankless_inputs(g, n_rows, Wq, negative=True)]
+        want = sweep_flankless_torch(*args)
+        run = lambda: sweep_flankless(*args)  # noqa: E731
+    else:
+        subs, dd, seeds, io, ie = (a.to(cuda) for a in flanked_inputs(g, n_rows, Wq, F))
+        seeds = negate_some(seeds)
+        kw = dict(L=L, R=R, climb=True)
+        want = sweep_flanked_torch(subs, dd, seeds, io, ie, **kw)
+        run = lambda: sweep_flanked(subs, dd, seeds, io, ie, **kw)  # noqa: E731
+    for _ in range(25):
+        fill_scratch_with_noise(n_rows, Wq, F, cuda)
+        assert torch.equal(run(), want)
 
 
 @pytest.mark.cuda

@@ -210,3 +210,73 @@ def test_primary_sweep_checks_the_seed_shape():
     assert pw.F == 2
     with pytest.raises(ValueError):
         pw.sweep(torch.zeros((1, 3, 4, 4), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_flankless_engine_route_in_place_equals_copies(seed):
+    """The flankless route hands the kernel the engine's plane-major field
+    as a view; M is what the row-major copies around the launch gave."""
+    cfg, ref, qry, _, seeds = _case(20 + seed, max_len=20, min_len=6)
+    pw = PrimarySweep(config_from_reference(cfg), ref, qry)
+    seeds_t = torch.from_numpy(seeds)
+    sub_rows, dd, io, ie = pw._inputs_on(seeds_t.device)
+    copied = sweep_flankless(sub_rows, dd, seeds_t[0].permute(1, 0, 2).contiguous(), io, ie)
+    want = copied.permute(1, 0, 2).contiguous()[None]
+    got = pw.sweep(seeds_t)
+    assert got.shape == want.shape and got.is_contiguous()
+    assert torch.equal(got, want)
+    # the wrapper itself: plane-major in, plane-major out, no copy of the seeds
+    view = seeds_t[0].permute(1, 0, 2)
+    out = sweep_flankless(sub_rows, dd, view, io, ie)
+    assert out.stride() == view.stride() and torch.equal(out, copied)
+
+
+def _random_flankless_inputs(seed, n_rows, Wq):
+    """Seeded flankless inputs with DEV_INF and DEV_INF - 1 entries and
+    negative seeds beside infinite ones (numpy, int32)."""
+    rng = np.random.default_rng(4000 + seed)
+    inf = 2**30 - 1
+
+    def costs(shape, lo, hi, p_inf, p_inf1=0.0):
+        x = rng.integers(lo, hi, size=shape).astype(np.int32)
+        u = rng.random(shape)
+        x[u < p_inf] = inf
+        x[(u >= p_inf) & (u < p_inf + p_inf1)] = inf - 1
+        return x
+
+    sub = costs((n_rows, Wq), 0, 7, 0.05, 0.05)
+    sub[0] = inf
+    dd = costs((n_rows, 2), 0, 6, 0.05)
+    seeds = costs((n_rows, 3, Wq), -40, 60, 0.7, 0.1)
+    io = costs((Wq,), 0, 6, 0.05)
+    ie = costs((Wq,), 0, 3, 0.05)
+    return sub, dd, seeds, io, ie
+
+
+@pytest.mark.parametrize("climb", [True, False])
+@pytest.mark.parametrize("seed,n_rows,Wq", [(0, 1, 1), (1, 1, 9), (2, 7, 1), (3, 12, 17),
+                                            (4, 30, 33)])
+def test_flankless_plain_is_the_flanked_plain_without_flanks(seed, n_rows, Wq, climb):
+    """`sweep_flankless_torch` equals `sweep_flanked_torch` at L = R = 0 on
+    the same inputs, whatever the other two tables hold: one kernel may serve
+    both sweeps."""
+    sub, dd, seeds, io, ie = _random_flankless_inputs(seed, n_rows, Wq)
+    rng = np.random.default_rng(seed)
+    subs = rng.integers(0, 9, size=(3, n_rows, Wq)).astype(np.int32)
+    subs[0] = sub
+    dd6 = rng.integers(0, 9, size=(n_rows, 6)).astype(np.int32)
+    dd6[:, :2] = dd
+    io3 = rng.integers(0, 9, size=(3, Wq)).astype(np.int32)
+    ie3 = rng.integers(0, 9, size=(3, Wq)).astype(np.int32)
+    io3[0], ie3[0] = io, ie
+    t = tables_from_numpy(dict(sub=sub, dd=dd, seeds=seeds, io=io, ie=ie, subs=subs, dd6=dd6,
+                               io3=io3, ie3=ie3), "cpu")
+    want = sweep_flankless_torch(t["sub"], t["dd"], t["seeds"], t["io"], t["ie"])
+    got = sweep_flanked_torch(t["subs"], t["dd6"], t["seeds"], t["io3"], t["ie3"],
+                              L=0, R=0, climb=climb)
+    assert torch.equal(got, want)
+    # and the flankless plain version equals the Pallas kernel on these inputs
+    want_pallas = np.asarray(sweep_pallas_flankless(
+        jnp.asarray(sub), jnp.asarray(dd), jnp.asarray(seeds), jnp.asarray(io),
+        jnp.asarray(ie), interpret=True))
+    np.testing.assert_array_equal(want.numpy(), want_pallas)

@@ -43,11 +43,13 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # C entry point -> (source stem, argument types)
 _SIGNATURES = {
-    # sub_rows, ddrows, seeds, io, ie, out, n_rows, Wq, stream
-    "tsa_sweep_flankless": ("sweep_flankless", [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
-    # subs, ddrows, seeds, io, ie, out, n_rows, Wq, L, R, climb,
-    # row_stride, plane_stride, stream
-    "tsa_sweep_flanked": ("sweep_flanked", [_P] * 6 + [_I] * 5 + [_LL] * 2 + [_P]),
+    # subs, ddrows, seeds, io, ie, out, skewed_in, skewed_out, n_rows, Wq, L, R,
+    # climb, dd_stride, row_stride, plane_stride, warps, stream (both sweeps)
+    "tsa_sweep": ("sweep", [_P] * 8 + [_I] * 6 + [_LL] * 2 + [_I] + [_P]),
+    # n_rows, Wq, F, in_ints (out), out_ints (out)
+    "tsa_sweep_scratch": ("sweep", [_I] * 3 + [_P] * 2),
+    # out (clocks, value), n, stream
+    "tsa_dpx_chain": ("sweep", [_P, _I, _P]),
     # seedT, lut, sdo, sde, pchar, pmask, io, ie, out,
     # NB, C, W, L, A, fwd, allow_sdel, skip_from, stream
     "tsa_module_scan": ("module_scan", [_P] * 9 + [_I] * 8 + [_P]),

@@ -141,15 +141,13 @@ class PrimarySweep:
                 f"seeds must have shape {(self.F, 3, n_rows, Wq)}, got {tuple(seeds.shape)}"
             )
         tables = self._inputs_on(seeds.device)
+        # Both sweeps read and write this plane-major layout in place:
+        # their (n_rows, 3F, Wq) argument is a view, and so is M.
+        seeds_r = seeds.contiguous().view(self.F * 3, n_rows, Wq).permute(1, 0, 2)
         if self.F == 1:
             sub_rows, dd, io, ie = tables
-            M = sweep_flankless(
-                sub_rows, dd, seeds[0].permute(1, 0, 2).contiguous(), io, ie
-            )
-            return M.permute(1, 0, 2).contiguous()[None]
+            M = sweep_flankless(sub_rows, dd, seeds_r, io, ie)
+            return M.permute(1, 0, 2).reshape(1, 3, n_rows, Wq)
         subs, dd, io, ie = tables
-        # The flanked sweep reads and writes this plane-major layout in
-        # place: its (n_rows, 3F, Wq) argument is a view, and so is M.
-        seeds_r = seeds.contiguous().view(self.F * 3, n_rows, Wq).permute(1, 0, 2)
         M = sweep_flanked(subs, dd, seeds_r, io, ie, L=self.L, R=self.R, climb=self.climb)
         return M.permute(1, 0, 2).reshape(self.F, 3, n_rows, Wq)

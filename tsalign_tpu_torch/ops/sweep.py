@@ -3,8 +3,8 @@
 `sweep_flankless_torch` is the plain version of the JAX package's ``_sweep_jit``
 at F = 1 (``ops/jax_primary.py``), written row by row like the Pallas kernel
 ``ops/pallas_sweep.py::_sweep_kernel``.  `sweep_flankless` runs it for tensors
-on the CPU and launches ``csrc/sweep_flankless.cu`` for tensors on a CUDA
-device.  Inputs and output use the Pallas layout: sub_rows (n_rows, Wq),
+on the CPU and launches ``csrc/sweep.cu`` for tensors on a CUDA device.
+Inputs and output use the Pallas layout: sub_rows (n_rows, Wq),
 ddrows (n_rows, 2), seeds (n_rows, 3, Wq), io/ie (Wq,) -> M (n_rows, 3, Wq),
 all int32.
 
@@ -14,13 +14,19 @@ over F = L + R + 1 flank layers, on the layout of the Pallas kernel
 (primary, left-flank, right-flank) tables, ddrows (n_rows, 6) del open/extend
 per table, seeds (n_rows, 3F, Wq) layer-major (plane 3 * fi + gap), io/ie
 (3, Wq) -> M (n_rows, 3F, Wq).  `sweep_flanked` runs it for tensors on the CPU
-and launches ``csrc/sweep_flanked.cu`` for tensors on a CUDA device.  Its
-seeds may be row-major (contiguous) or plane-major (a ``permute(1, 0, 2)``
-view of a contiguous (3F, n_rows, Wq) tensor, the engine's field layout); M
-comes back in the layout of the seeds.
+and launches ``csrc/sweep.cu`` for tensors on a CUDA device: one kernel serves
+both sweeps, the flankless one as its F = 1 case (`sweep_flankless_torch`
+equals `sweep_flanked_torch` at L = R = 0 on the same inputs).
+
+The seeds of either sweep may be row-major (contiguous) or plane-major (a
+``permute(1, 0, 2)`` view of a contiguous (planes, n_rows, Wq) tensor, the
+engine's field layout); the kernel addresses both through a row stride and a
+plane stride, and M comes back in the layout of the seeds.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -33,7 +39,7 @@ from .primary_sweep import GAP_DEL, GAP_INS, GAP_NONE
 def sweep_flankless_torch(sub_rows, ddrows, seeds, io, ie):
     """Plain torch flankless sweep (any device)."""
     n_rows, Wq = sub_rows.shape
-    out = torch.empty((n_rows, 3, Wq), dtype=I32, device=sub_rows.device)
+    out = torch.empty_like(seeds)  # keeps the seeds' layout
     prev = torch.full((3, Wq), DEV_INF, dtype=I32, device=sub_rows.device)
     check_extension("sweep_flankless_torch", ie)
     ext_into = shift_last(ie, 1, True)
@@ -60,6 +66,45 @@ def sweep_flankless_torch(sub_rows, ddrows, seeds, io, ie):
     return out
 
 
+def _check_seeds(seeds, n_rows, planes, Wq, dev):
+    """Raise unless `seeds` is an int32 (n_rows, planes, Wq) tensor on `dev`,
+    row-major (contiguous) or plane-major (a ``permute(1, 0, 2)`` view of a
+    contiguous (planes, n_rows, Wq) tensor)."""
+    plane_major = (
+        isinstance(seeds, torch.Tensor) and seeds.dim() == 3
+        and not seeds.is_contiguous() and seeds.permute(1, 0, 2).is_contiguous()
+    )
+    check_tensor("seeds", seeds.permute(1, 0, 2) if plane_major else seeds,
+                 (planes, n_rows, Wq) if plane_major else (n_rows, planes, Wq), dev)
+
+
+def _launch(name, subs, ddrows, seeds, io, ie, L, R, climb, warps: int = 0):
+    """Launch the sweep (its two re-ordering kernels and the wavefront
+    between them, as one call); M in the layout of the seeds.  `warps` (1 .. 8)
+    holds the block to fewer warps than the launch would take (0), for the
+    tests and the probe: the wrappers below never pass it."""
+    n_rows, planes, Wq = seeds.shape
+    dev = seeds.device
+    out = torch.empty_strided(seeds.shape, seeds.stride(), dtype=I32, device=dev)
+    if n_rows and Wq:
+        lib = _build.library()
+        n_in, n_out = ctypes.c_longlong(), ctypes.c_longlong()
+        _build.check(lib.tsa_sweep_scratch(n_rows, Wq, planes // 3, ctypes.byref(n_in),
+                                           ctypes.byref(n_out)), name + " (scratch)")
+        # the data in the order the wavefront reads and writes it
+        skewed_in = torch.empty(n_in.value, dtype=I32, device=dev)
+        skewed_out = torch.empty(n_out.value, dtype=I32, device=dev)
+        code = lib.tsa_sweep(
+            subs.data_ptr(), ddrows.data_ptr(), seeds.data_ptr(), io.data_ptr(),
+            ie.data_ptr(), out.data_ptr(), skewed_in.data_ptr(), skewed_out.data_ptr(),
+            n_rows, Wq, L, R, int(bool(climb)), ddrows.shape[1], seeds.stride(0),
+            seeds.stride(1), warps, _build.stream_ptr(dev),
+        )
+        _build.check(code, name)
+        _build.launches[name] += 1
+    return out
+
+
 def sweep_flankless(sub_rows, ddrows, seeds, io, ie):
     """Flankless sweep: the plain version on the CPU, the kernel on CUDA."""
     if sub_rows.dim() != 2:
@@ -68,24 +113,14 @@ def sweep_flankless(sub_rows, ddrows, seeds, io, ie):
     dev = sub_rows.device
     check_tensor("sub_rows", sub_rows, (n_rows, Wq), dev)
     check_tensor("ddrows", ddrows, (n_rows, 2), dev)
-    check_tensor("seeds", seeds, (n_rows, 3, Wq), dev)
+    _check_seeds(seeds, n_rows, 3, Wq, dev)
     check_tensor("io", io, (Wq,), dev)
     check_tensor("ie", ie, (Wq,), dev)
     if dev.type == "cpu":
         return sweep_flankless_torch(sub_rows, ddrows, seeds, io, ie)
     if dev.type != "cuda":
         raise ValueError(f"sweep_flankless runs on cpu or cuda, not {dev}")
-    lib = _build.library()
-    out = torch.empty((n_rows, 3, Wq), dtype=I32, device=dev)
-    if n_rows and Wq:
-        code = lib.tsa_sweep_flankless(
-            sub_rows.data_ptr(), ddrows.data_ptr(), seeds.data_ptr(),
-            io.data_ptr(), ie.data_ptr(), out.data_ptr(), n_rows, Wq,
-            _build.stream_ptr(dev),
-        )
-        _build.check(code, "sweep_flankless")
-        _build.launches["sweep_flankless"] += 1
-    return out
+    return _launch("sweep_flankless", sub_rows, ddrows, seeds, io, ie, 0, 0, False)
 
 
 MAX_FLANK_LAYERS = 16  # the deepest layer stack the flanked kernel is held to
@@ -172,24 +207,22 @@ def sweep_flanked(subs, ddrows, seeds, io, ie, *, L: int, R: int, climb: bool):
     check_tensor("ddrows", ddrows, (n_rows, 6), dev)
     check_tensor("io", io, (3, Wq), dev)
     check_tensor("ie", ie, (3, Wq), dev)
-    plane_major = (
-        isinstance(seeds, torch.Tensor) and seeds.dim() == 3
-        and not seeds.is_contiguous() and seeds.permute(1, 0, 2).is_contiguous()
-    )
-    check_tensor("seeds", seeds.permute(1, 0, 2) if plane_major else seeds,
-                 (3 * F, n_rows, Wq) if plane_major else (n_rows, 3 * F, Wq), dev)
+    _check_seeds(seeds, n_rows, 3 * F, Wq, dev)
     if dev.type == "cpu":
         return sweep_flanked_torch(subs, ddrows, seeds, io, ie, L=L, R=R, climb=bool(climb))
     if dev.type != "cuda":
         raise ValueError(f"sweep_flanked runs on cpu or cuda, not {dev}")
+    return _launch("sweep_flanked", subs, ddrows, seeds, io, ie, L, R, climb)
+
+
+def dpx_chain_clocks(device, n: int = 1 << 20) -> float:
+    """Clocks an instruction of `n` dependent ``__viaddmin_s32`` in one thread
+    of `device` (a CUDA device): the latency of the instruction that a sweep's
+    dependency chain is made of."""
+    n -= n % 16
+    out = torch.zeros(2, dtype=torch.int64, device=device)
     lib = _build.library()
-    out = torch.empty_strided(seeds.shape, seeds.stride(), dtype=I32, device=dev)
-    if n_rows and Wq:
-        code = lib.tsa_sweep_flanked(
-            subs.data_ptr(), ddrows.data_ptr(), seeds.data_ptr(), io.data_ptr(),
-            ie.data_ptr(), out.data_ptr(), n_rows, Wq, L, R, int(bool(climb)),
-            seeds.stride(0), seeds.stride(1), _build.stream_ptr(dev),
-        )
-        _build.check(code, "sweep_flanked")
-        _build.launches["sweep_flanked"] += 1
-    return out
+    for _ in range(2):  # the first run warms the instruction cache
+        _build.check(lib.tsa_dpx_chain(out.data_ptr(), n, _build.stream_ptr(out.device)),
+                     "dpx_chain")
+    return int(out[0]) / n
