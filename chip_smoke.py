@@ -19,7 +19,13 @@ Phases, each ending with a line of its wall time (phase_s):
      buffers that hold noise; the module scan in both of its modes (the exact
      mode by torch.equal, the skipping mode by equal_mod_inf: equal below
      2^29, infinite where the plain version is) on inputs a part of whose
-     problems die (infinite seed rows, a mask that turns infinite);
+     problems die (infinite seed rows, a mask that turns infinite); then the
+     kernels' new variants: the module scan of modules wider than 2048
+     offsets (2049 and 4096: T warps a problem) in both modes, its diagonal
+     mode (same-sequence kinds) at the main pair's shapes, and both kernels'
+     pair axes at phase 7's shapes (eight sweeps of 513 x 513 at F = 1 and
+     5 on scratch buffers that hold noise, eight module-scan chunks of
+     NB 513 / C 64 / W 613 / L 512), each pair also against its own launch;
   3. three small planted-TSM pairs under the default configuration and three
      under the flanked default: the port's cost equals the Dijkstra oracle's
      (tsalign_tpu_torch.oracle);
@@ -42,7 +48,18 @@ Phases, each ending with a line of its wall time (phase_s):
      flanked sweep and the module scan must launch and the flankless sweep
      must not, the alignment must reprice to the cost (with its flank labels
      restored, see `with_flank_labels`) and hold a flank operation; then the flanked sweep against its plain version at that
-     path's shapes (the root seeds and a later round's seeds).
+     path's shapes (the root seeds and a later round's seeds);
+  7. the batched engine at full width: eight seeded planted pairs of
+     380-500 bp, poison-padded into the (512, 512) bucket, through
+     tsalign_tpu_torch.align_pairs(..., device="cuda"), under the default
+     configuration and under the flanked default: every record reprices to
+     its cost, the sweep's and the module scan's pair axes and the diagonal
+     mode launch, and the shortest and the longest pair cost the same
+     through the single-pair port (its wall beside the batch's, and the
+     batch's kernel time on the card by CUDA events around each launch);
+     then the eight pairs of tests/fixtures/torch_port_batch_pairs.json
+     (60-128 bp, two buckets): cost and CIGAR equal the JAX package's
+     batched engine's (recorded on the CPU).
 Any failure raises, so the script exits nonzero before its last line.  The
 last lines are the kernels' JSON record, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -93,12 +110,13 @@ from tsalign_tpu_torch.costs import GapAffineCostTable
 from tsalign_tpu_torch.engine import TorchAligner, next_seeds
 from tsalign_tpu_torch.ops.common import (DEV_INF, DEV_INF_THRESH, dead_state_threshold,
                                           equal_mod_inf, sat_add)
-from tsalign_tpu_torch.ops.module_scan import module_scan
+from tsalign_tpu_torch.ops.module_scan import launch_plan, module_scan, module_scan_diag
 from tsalign_tpu_torch.ops.modules import module_scan_torch
 from tsalign_tpu_torch.ops import sweep as sweep_ops
 from tsalign_tpu_torch.ops.sweep import (dpx_chain_clocks, sweep_flanked, sweep_flanked_torch,
                                          sweep_flankless, sweep_flankless_torch)
 from tsalign_tpu_torch.oracle import OracleAligner
+from tsalign_tpu_torch.parallel.batch_ts import align_pairs
 from tsalign_tpu_torch.pricing import price_alignment
 
 DEV = "cuda"
@@ -109,6 +127,13 @@ FLANKED_FIXTURE = os.path.join(FIXTURES, "torch_port_flanked_pairs.json")
 # the flanked fixture's pairs; each also gets the two flank substitutions.
 FLANKED_FIXTURE_PAIRS = (("flanked_60", 1060, 60, 12, 2), ("flanked_90", 1090, 90, 16, 2),
                          ("flanked_120", 1120, 120, 20, 3))
+# (name, seed, reference length, planted reverse-complement length, SNPs) of
+# the batch fixture's pairs: two length buckets (64 and 128).
+BATCH_FIXTURE = os.path.join(FIXTURES, "torch_port_batch_pairs.json")
+BATCH_FIXTURE_PAIRS = (("batch_60", 2060, 60, 12, 2), ("batch_64", 2064, 64, 10, 2),
+                       ("batch_90", 2090, 90, 16, 2), ("batch_100", 2100, 100, 16, 3),
+                       ("batch_110", 2110, 110, 18, 3), ("batch_118", 2118, 118, 18, 3),
+                       ("batch_124", 2124, 124, 20, 3), ("batch_128", 2128, 128, 20, 4))
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4 * 2  # 64 of an SM's 128 lanes, two operations a DPX instruction
 KERNELS = {
@@ -126,6 +151,34 @@ KERNELS = {
         "route": "cuda",
         "source": "tsalign_tpu_torch/csrc/module_scan.cu",
         "replaces": "tsalign_tpu/ops/pallas_module.py:142",
+    },
+    # the variants of the two kernels: the module scan of a module wider than
+    # 2048 offsets (T warps a problem), its diagonal mode (same-sequence
+    # kinds), and both kernels' pair axes (the batched engine)
+    "module_scan_wide": {
+        "route": "cuda",
+        "source": "tsalign_tpu_torch/csrc/module_scan.cu",
+        "replaces": "tsalign_tpu/ops/pallas_module.py:142",
+    },
+    "module_scan_diag": {
+        "route": "cuda",
+        "source": "tsalign_tpu_torch/csrc/module_scan.cu",
+        "replaces": "tsalign_tpu/ops/pallas_module.py:142",
+    },
+    "module_scan_pairs": {
+        "route": "cuda",
+        "source": "tsalign_tpu_torch/csrc/module_scan.cu",
+        "replaces": "tsalign_tpu/ops/pallas_module.py:142",
+    },
+    "sweep_flankless_pairs": {
+        "route": "cuda",
+        "source": "tsalign_tpu_torch/csrc/sweep.cu",
+        "replaces": "tsalign_tpu/ops/pallas_sweep.py:238",
+    },
+    "sweep_flanked_pairs": {
+        "route": "cuda",
+        "source": "tsalign_tpu_torch/csrc/sweep.cu",
+        "replaces": "tsalign_tpu/ops/pallas_sweep.py:392",
     },
 }
 max_err = {name: None for name in KERNELS}
@@ -278,7 +331,30 @@ def module_scan_bound(seedT, lut, sdo, sde, pchar, pmask, io, ie, *, allow_sdel,
     mode runs every level of every problem.  The skipping mode (`skip_from`
     > 0, with the plain result `B_plain`) has to close and emit the levels of
     a problem up to the first whose minimum reaches `skip_from`, and to step
-    between them; the live share is those levels over all."""
+    between them; the live share is those levels over all.  A leading pair
+    axis on every argument sums the sets' work; a 2-D seed (the diagonal
+    mode) is a problem set of one column."""
+    if seedT.dim() == 4:
+        work = [module_scan_work(*(t[z] for t in (seedT, lut, sdo, sde, pchar, pmask, io, ie)),
+                                 allow_sdel=allow_sdel, skip_from=skip_from,
+                                 B_plain=None if B_plain is None else B_plain[z])
+                for z in range(seedT.shape[0])]
+    else:
+        work = [module_scan_work(seedT, lut, sdo, sde, pchar, pmask, io, ie,
+                                 allow_sdel=allow_sdel, B_plain=B_plain, skip_from=skip_from)]
+    levels = sum(w[2] for w in work)
+    return (*bound(sum(w[0] for w in work), sum(w[1] for w in work)),
+            levels / max(sum(w[3] for w in work), 1),
+            sum(w[4] * w[3] for w in work) / max(sum(w[3] for w in work), 1))
+
+
+def module_scan_work(seedT, lut, sdo, sde, pchar, pmask, io, ie, *, allow_sdel,
+                     B_plain=None, skip_from=0):
+    """(bytes, operations, levels run, levels in all, share dead at level 0)
+    of one problem set (see `module_scan_bound`)."""
+    if seedT.dim() == 2:
+        seedT = seedT[:, None]
+        B_plain = None if B_plain is None else B_plain[..., None]
     NB, C, W = seedT.shape
     L = pchar.shape[0]
     close_emit = (SCAN_CLOSE_OPS if allow_sdel else 0) + SCAN_EMIT_OPS
@@ -291,9 +367,8 @@ def module_scan_bound(seedT, lut, sdo, sde, pchar, pmask, io, ie, *, allow_sdel,
         levels, dead0 = NB * C * (L + 1), 0.0
     ops = W * (levels * close_emit + (levels - NB * C) * SCAN_STEP_OPS)
     out_bytes = 4 * (L + 1) * NB * C
-    live = levels / max(NB * C * (L + 1), 1)
-    return (*bound(nbytes(seedT, lut, sdo, sde, pchar, pmask, io, ie) + out_bytes, ops),
-            live, dead0)
+    return (nbytes(seedT, lut, sdo, sde, pchar, pmask, io, ie) + out_bytes, ops, levels,
+            NB * C * (L + 1), dead0)
 
 
 def module_inputs(gen, NB, C, W, L, A=6):
@@ -337,8 +412,10 @@ def module_scan_build_report():
     how often each DPX instruction stands in its SASS (cuobjdump)."""
     per_k = {}
     for r in _build.resources("module_scan"):
-        k = re.search(r"ILi(\d+)E", r["name"])
-        per_k[int(k.group(1)) if k else r["name"]] = [
+        # K, "_wide" for several warps a problem, "_diag" for the diagonal mode
+        k = re.search(r"ILi(\d+)ELb([01])ELb([01])E", r["name"])
+        per_k[f"{k.group(1)}{'_wide' * int(k.group(2))}{'_diag' * int(k.group(3))}"
+              if k else r["name"]] = [
             r["registers"], r["stack"], r["spill_stores"] + r["spill_loads"]]
     say(1, module_scan_registers_stack_spill_by_K=per_k,
         most_registers=max(v[0] for v in per_k.values()),
@@ -450,14 +527,14 @@ def sweep_strip_edges(gen):
         equal=True)
 
 
-def scratch_noise(n_rows, Wq, F):
+def scratch_noise(n_rows, Wq, F, P=1):
     """Leave noise of any sign where the allocator will put the next launch's
-    two scratch buffers: the wavefront computes on what they hold outside
-    the field, and none of it may reach a cell of the field."""
+    two scratch buffers (of P sweeps): the wavefront computes on what they
+    hold outside the field, and none of it may reach a cell of the field."""
     n_in, n_out = ctypes.c_longlong(), ctypes.c_longlong()
     _build.check(_build.library().tsa_sweep_scratch(n_rows, Wq, F, ctypes.byref(n_in),
                                                     ctypes.byref(n_out)), "scratch")
-    noise = [torch.randint(-2**31, 2**31 - 1, (n.value,), dtype=torch.int32, device=DEV)
+    noise = [torch.randint(-2**31, 2**31 - 1, (P * n.value,), dtype=torch.int32, device=DEV)
              for n in (n_in, n_out)]
     torch.cuda.synchronize()
     del noise
@@ -489,6 +566,7 @@ def phase2():
     gen = torch.Generator().manual_seed(2)
     phase2_sweeps(gen)
     phase2_scan(gen)
+    return phase2_variants(gen)
 
 
 def phase2_sweeps(gen):
@@ -549,6 +627,122 @@ def phase2_scan(gen):
                     ms=cuda_ms(lambda: module_scan(*args, **kw), 10),
                     skipping_ms=cuda_ms(lambda: module_scan(*args, **skip), 10),
                     plain_ms=cuda_ms(lambda: module_scan_torch(*args, **kw), 1))
+
+
+def phase2_variants(gen):
+    """The kernels' new variants against their plain versions: the module
+    scan of wide modules (T warps a problem) in both modes, its diagonal
+    mode at the main pair's same-sequence shapes, and both kernels' pair
+    axes at the shapes of phase 7's batch (eight pairs in the 512 bucket),
+    each pair also against its own launch.  Returns each variant's (ms,
+    plain_ms, bound_ms, bound_by)."""
+    timings = {}
+    for fwd in (True, False):
+        for NB, C, W, L in ((13, 8, 2049, 12), (13, 8, 4096, 12), (32, 16, 4096, 64)):
+            args = module_inputs(gen, NB, C, W, L)
+            kw = dict(fwd=fwd, allow_sdel=True)
+            skip = dict(kw, skip_from=scan_skip_from(args, True))
+            want = module_scan_torch(*args, **kw)
+            what = f"wide fwd={fwd} NB={NB} C={C} W={W} L={L}"
+            compare("module_scan_wide", module_scan(*args, **kw), want, what + " exact")
+            compare("module_scan_wide", module_scan(*args, **skip), want, what + " skipping",
+                    mod_inf=True)
+            ms = cuda_ms(lambda: module_scan(*args, **kw), 5)
+            plain_ms = cuda_ms(lambda: module_scan_torch(*args, **kw), 1)
+            bound_ms, bound_by, _, _ = module_scan_bound(*args, allow_sdel=True)
+            say(2, kernel="module_scan_wide", NB=NB, C=C, W=W, L=L, fwd=fwd,
+                warps_a_problem=launch_plan(W, args[1].shape[0])[1], equal=True,
+                equal_mod_inf_skipping=True, ms=ms,
+                skipping_ms=cuda_ms(lambda: module_scan(*args, **skip), 5), plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+            timings["module_scan_wide"] = (ms, plain_ms, bound_ms, bound_by)
+    # the main pair's same-sequence kinds: 501 problems of 601 (forward) and
+    # 501 (reverse) offsets through 500 levels
+    for fwd, W in ((True, 601), (False, 501)):
+        seedT, lut, sdo, sde, pchar, pmask, io, ie = module_inputs(gen, 501, 501, W, 500)
+        args = (seedT[torch.arange(501), torch.arange(501)].contiguous(), lut, sdo, sde,
+                pchar, pmask, io, ie)
+        kw = dict(fwd=fwd, allow_sdel=True)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        want = module_scan_torch(*args, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.monotonic() - t0) * 1e3
+        compare("module_scan_diag", module_scan_diag(*args, **kw), want, f"diag fwd={fwd} W={W}")
+        ms = cuda_ms(lambda: module_scan_diag(*args, **kw), 5)
+        bound_ms, bound_by, _, _ = module_scan_bound(*args, allow_sdel=True)
+        say(2, kernel="module_scan_diag", NB=501, W=W, L=500, fwd=fwd, equal=True, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        timings.setdefault("module_scan_diag", (ms, plain_ms, bound_ms, bound_by))
+    # the pair axes at the 512 bucket: 8 sweeps of 513 x 513 (F = 1 and 5),
+    # 8 module scans of a chunk (NB 513, C 64, W 613, L 512)
+    P, n = 8, 513
+    for F in (1, 5):
+        sets = ([sweep_inputs(gen, n, n) for _ in range(P)] if F == 1
+                else [flanked_sweep_inputs(gen, n, n, F) for _ in range(P)])
+        kw = {} if F == 1 else dict(L=2, R=2, climb=True)
+        name = "sweep_flankless_pairs" if F == 1 else "sweep_flanked_pairs"
+        # one wrapper: a pair axis on its arguments makes it one launch of P pairs
+        single = pairs = sweep_flankless if F == 1 else sweep_flanked
+        plain = sweep_flankless_torch if F == 1 else sweep_flanked_torch
+        sets = [[a[0], a[1], negate_some(a[2]), a[3], a[4]] for a in sets]
+        stacked = [torch.stack(ts) for ts in zip(*sets)]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        wants = [plain(*ts, **kw) for ts in sets]
+        torch.cuda.synchronize()
+        plain_ms = (time.monotonic() - t0) * 1e3
+        for layout in ("rows", "planes"):
+            if layout == "planes":
+                stacked[2] = plane_major_pairs(stacked[2])
+            for run in range(3):
+                scratch_noise(n, n, F, P)
+                got = pairs(*stacked, **kw)
+                for z, ts in enumerate(sets):
+                    compare(name, got[z].contiguous(), wants[z], f"pair {z} {layout} run {run}")
+        for z, ts in enumerate(sets):
+            compare(name, single(*ts, **kw), wants[z], f"pair {z} alone")
+        ms = cuda_ms(lambda: pairs(*stacked, **kw), 10)
+        single_ms = cuda_ms(lambda: [single(*ts, **kw) for ts in sets], 3)
+        b = [(sweep_flankless_bound if F == 1 else sweep_flanked_bound)(*ts, **kw, chain=False)
+             for ts in sets]
+        n_bytes = sum(nbytes(*ts) + nbytes(ts[2]) for ts in sets)
+        ops = P * n * n * SWEEP_OPS_PER_CELL * (1 + (2 + 2 if F > 1 else 0))
+        bound_ms, bound_by = bound(n_bytes, ops, n + n + F - 2)
+        say(2, kernel=name, pairs=P, shape=[n, 3 * F, n], equal=True, scratch_holds_noise=True,
+            ms=ms, single_launches_ms=single_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, bytes_or_operations_bound_of_one=b[0])
+        timings[name] = (ms, plain_ms, bound_ms, bound_by)
+    sets = [module_inputs(gen, n, 64, 613, 512) for _ in range(P)]
+    stacked = [torch.stack(ts) for ts in zip(*sets)]
+    kw = dict(fwd=False, allow_sdel=True)
+    skip_from = max(scan_skip_from(ts, True) for ts in sets)  # sound for every set
+    got = module_scan(*stacked, **kw)
+    got_skip = module_scan(*stacked, **kw, skip_from=skip_from)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    wants = [module_scan_torch(*ts, **kw) for ts in sets]
+    torch.cuda.synchronize()
+    plain_ms = (time.monotonic() - t0) * 1e3
+    for z, ts in enumerate(sets):
+        compare("module_scan_pairs", got[z], wants[z], f"pair {z} exact")
+        compare("module_scan_pairs", got_skip[z], wants[z], f"pair {z} skipping", mod_inf=True)
+        compare("module_scan_pairs", got[z], module_scan(*ts, **kw), f"pair {z} alone")
+    ms = cuda_ms(lambda: module_scan(*stacked, **kw, skip_from=skip_from), 3)
+    exact_ms = cuda_ms(lambda: module_scan(*stacked, **kw), 3)
+    single_ms = cuda_ms(lambda: [module_scan(*ts, **kw, skip_from=skip_from) for ts in sets], 3)
+    bound_ms, bound_by, live, _ = module_scan_bound(
+        *stacked, allow_sdel=True, B_plain=torch.stack(wants), skip_from=skip_from)
+    say(2, kernel="module_scan_pairs", pairs=P, NB=n, C=64, W=613, L=512, equal=True,
+        equal_mod_inf_skipping=True, ms=ms, exact_ms=exact_ms, single_launches_ms=single_ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, live_share=live)
+    timings["module_scan_pairs"] = (ms, plain_ms, bound_ms, bound_by)
+    return timings
+
+
+def plane_major_pairs(seeds):
+    """The (P, n_rows, planes, Wq) view of a plane-major copy of `seeds`."""
+    return seeds.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
 
 
 def planted_pair(rng, n, ts_len, snps, indel, q_len=None, flank_snps=False):
@@ -913,30 +1107,145 @@ def phase6_shapes(r, q):
     return {"sweep_flanked": out}
 
 
+def batch_pairs(n_pairs=8):
+    """Phase 7's pairs: seeded planted pairs of 380-500 bp, each poison-padded
+    into the (512, 512) bucket."""
+    rng = np.random.default_rng(700)
+    return [planted_pair(rng, int(rng.integers(380, 501)), 40, 5, True) for _ in range(n_pairs)]
+
+
+def phase7_batch(flanked):
+    """The batched engine at full width: `align_pairs` on the card over the
+    eight pairs of `batch_pairs`, under the default configuration or the
+    flanked default.  Every record must reprice to its cost, and the
+    shortest and the longest pair must cost the same through the single-pair
+    port (timed in the same run).  Returns the launches of the batch."""
+    al = get_alphabet("dna-n")
+    cfg = flanked_default(al) if flanked else TemplateSwitchConfig.default(al)
+    pairs = batch_pairs()
+    rounds = {}
+
+    def on_batch(idx, bt):
+        if (bt.nr, bt.nq) != (512, 512):
+            raise AssertionError(f"batch: bucket {(bt.nr, bt.nq)}, not (512, 512)")
+        for i, res in zip(idx, bt.last_results):
+            rounds[i] = res.rounds
+
+    # align_pairs' redo pass: under the K-scaled tie-break (K = 2048 at this
+    # bucket) a pair of a config that can rewind whose rounds could carry the
+    # TS length to K is aligned again by the single-pair engine
+    K = 2048
+    lw = cfg.length_costs.maximum_finite_input()
+
+    def redone(i):
+        n = max(len(pairs[i][0]), len(pairs[i][1]), 1)
+        l_eff = min(int(lw) if lw is not None else n, n)
+        return cfg.can_rewind() and max(0, rounds[i] - 1) * l_eff >= K
+
+    _build.launches.clear()
+    _build.kernel_events = []
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    records = align_pairs(cfg, pairs, device=DEV, on_batch=on_batch)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    kernel_ms = _build.kernel_ms()
+    _build.kernel_events = None
+    counts = dict(_build.launches)
+    costs = []
+    for (r, q), rec in zip(pairs, records):
+        cost = rec.result.cost
+        if flanked:
+            priced, _ = reprice(cfg, al.encode(r), al.encode(q), rec.alignment)
+        else:
+            priced = price_alignment(cfg, al.encode(r), al.encode(q), rec.alignment)
+        if priced != cost:
+            raise AssertionError(f"batch flanked={flanked}: a record reprices to {priced}, "
+                                 f"reported {cost}")
+        costs.append(cost)
+    names = ["sweep_flanked_pairs" if flanked else "sweep_flankless_pairs", "module_scan_pairs",
+             "module_scan_diag"]
+    for name in names:
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"batch flanked={flanked}: kernel {name} was not launched")
+    singles = {}
+    lengths = [len(r) + len(q) for r, q in pairs]
+    for i in (int(np.argmin(lengths)), int(np.argmax(lengths))):
+        r, q = pairs[i]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        got = tsalign_tpu_torch.Aligner(costs=cfg, device=DEV).align(r, q)
+        torch.cuda.synchronize()
+        singles[i] = dict(n_r=len(r), n_q=len(q), cost=got.stats()["cost"],
+                          wall_s=time.monotonic() - t0)
+        if got.stats()["cost"] != costs[i]:
+            raise AssertionError(f"batch flanked={flanked}: pair {i} costs {costs[i]} in the "
+                                 f"batch and {got.stats()['cost']} alone")
+    say(7, batch="flanked" if flanked else "flankless", pairs=len(pairs),
+        n_r=[len(r) for r, _ in pairs], n_q=[len(q) for _, q in pairs], costs=costs,
+        rounds=[rounds[i] for i in range(len(pairs))],
+        redone_by_the_single_pair_engine=[i for i in range(len(pairs)) if redone(i)], wall_s=wall,
+        wall_s_a_pair=wall / len(pairs), repriced=True, kernel_device_ms=kernel_ms,
+        kernel_device_share=sum(kernel_ms.values()) / 1e3 / wall, launches=counts,
+        single_pair=singles)
+    return counts
+
+
+def phase7_fixture():
+    """The batch fixture's eight pairs (60-128 bp, two buckets) through
+    `align_pairs` on the card: cost and CIGAR equal the JAX package's batched
+    engine's (recorded on the CPU)."""
+    al = get_alphabet("dna-n")
+    with open(BATCH_FIXTURE) as f:
+        fixture = json.load(f)["pairs"]
+    pairs = [(p["reference"], p["query"]) for p in fixture]
+    records = align_pairs(TemplateSwitchConfig.default(al), pairs,
+                          names=[(p["name"], p["name"]) for p in fixture], device=DEV)
+    for p, rec in zip(fixture, records):
+        if rec.result.cost != p["cost"] or rec.cigar() != p["cigar"]:
+            raise AssertionError(f"batch fixture {p['name']}: port {rec.result.cost} "
+                                 f"{rec.cigar()} != JAX {p['cost']} {p['cigar']}")
+    say(7, batch_fixture=[p["name"] for p in fixture], costs=[p["cost"] for p in fixture],
+        equal=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)")
+    timings = {}
     for phase, fn in ((1, phase1), (2, phase2), (3, phase3), (4, phase4)):
         t0 = time.monotonic()
-        fn()
+        timings.update(fn() or {})
         say(phase, phase_s=time.monotonic() - t0)
     t0 = time.monotonic()
     r, q, counts = phase5()
-    timings = phase5_shapes(r, q)
+    timings.update(phase5_shapes(r, q))
     say(5, phase_s=time.monotonic() - t0)
     t0 = time.monotonic()
     r, q, flanked_counts = phase6()
     timings.update(phase6_shapes(r, q))
     say(6, phase_s=time.monotonic() - t0)
+    t0 = time.monotonic()
+    batch_counts = phase7_batch(False)
+    flanked_batch_counts = phase7_batch(True)
+    phase7_fixture()
+    say(7, phase_s=time.monotonic() - t0)
     kernels = []
     for name, meta in KERNELS.items():
         if max_err[name] is None or name not in timings:
             raise AssertionError(f"{name}: not compared or not timed at the main shapes")
         ms, plain_ms, bound_ms, bound_by = timings[name]
-        by_path = {"flankless": counts.get(name, 0), "flanked": flanked_counts.get(name, 0)}
-        # the launches of the newest main path that runs the kernel
-        launches = by_path["flanked"] or by_path["flankless"]
-        if launches <= 0:
+        by_path = {"flankless": counts.get(name, 0), "flanked": flanked_counts.get(name, 0),
+                   "batch": batch_counts.get(name, 0),
+                   "flanked_batch": flanked_batch_counts.get(name, 0)}
+        # the launches of the newest main path that runs the kernel: the
+        # batches for the variants they launch, the single pairs for the rest
+        # (a batch's redo pass launches those too)
+        batched = name.endswith("_pairs") or name == "module_scan_diag"
+        order = ("flanked_batch", "batch", "flanked", "flankless") if batched else (
+            "flanked", "flankless")
+        launches = next((by_path[k] for k in order if by_path[k]), 0)
+        if launches <= 0 and name != "module_scan_wide":
             raise AssertionError(f"{name}: launched on no main path")
         kernels.append(dict(name=name, **meta, launches=launches, launches_by_path=by_path,
                             max_abs_err=max_err[name], ms=ms, plain_ms=plain_ms,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Write the port's fixtures: pairs aligned by the JAX package.
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_port_fixture.py [default] [flanked]
+    JAX_PLATFORMS=cpu python scripts/make_torch_port_fixture.py [default] [flanked] [batch]
 
 ``default`` writes tests/fixtures/torch_port_pairs.json: three seeded
 planted-template-switch pairs (one of 60 bp, two of 150-200 bp) through
@@ -10,10 +10,13 @@ planted-template-switch pairs (one of 60 bp, two of 150-200 bp) through
 of 60-120 bp, each with a substitution on either side of the planted stretch,
 through the JAX facade under the flanked default (the default configuration
 with two flank layers on either side and flank tables of match 0,
-substitution 1, gap open 2, gap extend 1).  With no argument both are
-written.  Seeds, sequences, cost and CIGAR go into the fixture that
-``chip_smoke.py`` (phase 4) and ``tests/test_torch_aligner.py`` hold the
-PyTorch/CUDA port against.
+substitution 1, gap open 2, gap extend 1).  ``batch`` writes
+tests/fixtures/torch_port_batch_pairs.json: eight seeded planted pairs of
+60-128 bp (two length buckets) through the JAX package's batched engine,
+``tsalign_tpu.parallel.batch_ts.align_pairs``, under the default
+configuration.  With no argument all three are written.  Seeds, sequences,
+cost and CIGAR go into the fixture that ``chip_smoke.py`` (phases 4 and 7)
+and ``tests/test_torch_aligner.py`` hold the PyTorch/CUDA port against.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from tsalign_tpu.costs import GapAffineCostTable  # noqa: E402
 
 OUT = os.path.join(ROOT, "tests", "fixtures", "torch_port_pairs.json")
 FLANKED_OUT = os.path.join(ROOT, "tests", "fixtures", "torch_port_flanked_pairs.json")
+BATCH_OUT = os.path.join(ROOT, "tests", "fixtures", "torch_port_batch_pairs.json")
 # (name, seed, reference length, planted reverse-complement length, SNPs)
 PAIRS = (("planted_60", 60, 60, 12, 2), ("planted_150", 150, 150, 25, 3),
          ("planted_200", 200, 200, 30, 4))
@@ -90,12 +94,39 @@ def write_default():
         f.write("\n")
 
 
+def write_batch():
+    from chip_smoke import BATCH_FIXTURE_PAIRS
+    from tsalign_tpu.parallel.batch_ts import align_pairs
+
+    pairs, specs = [], []
+    for name, seed, n, ts_len, snps in BATCH_FIXTURE_PAIRS:
+        pairs.append(planted_pair(np.random.default_rng(seed), n, ts_len, snps, True))
+        specs.append(dict(name=name, seed=seed, ts_len=ts_len, snps=snps))
+    t0 = time.monotonic()
+    records = align_pairs(TemplateSwitchConfig.default(get_alphabet("dna-n")), pairs,
+                          names=[(s["name"], s["name"]) for s in specs])
+    print(f"batch of {len(pairs)}: {time.monotonic() - t0:.1f} s", flush=True)
+    out = []
+    for spec, (r, q), rec in zip(specs, pairs, records):
+        print(f"{spec['name']}: cost {rec.result.cost} {rec.cigar()}", flush=True)
+        out.append(dict(spec, reference=r, query=q, cost=int(rec.result.cost),
+                        cigar=rec.cigar()))
+    with open(BATCH_OUT, "w") as f:
+        json.dump({"config": "TemplateSwitchConfig.default(dna-n)",
+                   "engine": "tsalign_tpu.parallel.batch_ts.align_pairs on the CPU "
+                             "(its host rounds loop)",
+                   "pairs": out}, f, indent=1)
+        f.write("\n")
+
+
 def main():
-    which = sys.argv[1:] or ["default", "flanked"]
+    which = sys.argv[1:] or ["default", "flanked", "batch"]
     if "default" in which:
         write_default()
     if "flanked" in which:
         write_flanked()
+    if "batch" in which:
+        write_batch()
 
 
 if __name__ == "__main__":

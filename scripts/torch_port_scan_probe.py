@@ -102,7 +102,7 @@ def build_variant(defines):
                     "-o", str(so), str(_build.CSRC / "module_scan.cu")],
                    check=True, capture_output=True, text=True)
     fn = ctypes.CDLL(str(so)).tsa_module_scan
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
     def run(seedT, lut, sdo, sde, pchar, pmask, io, ie, *, fwd, allow_sdel, skip_from=0):
@@ -110,8 +110,8 @@ def build_variant(defines):
         L, A = pchar.shape[0], lut.shape[0]
         out = torch.empty((L + 1, NB, C), dtype=I32, device=seedT.device)
         _build.check(fn(*(t.data_ptr() for t in (seedT, lut, sdo, sde, pchar, pmask, io, ie)),
-                        out.data_ptr(), NB, C, W, L, A, int(fwd), int(allow_sdel),
-                        int(skip_from), _build.stream_ptr(seedT.device)), "the variant")
+                        out.data_ptr(), 1, NB, C, W, L, A, int(fwd), int(allow_sdel),
+                        int(skip_from), 0, _build.stream_ptr(seedT.device)), "the variant")
         return out
 
     return run
@@ -256,7 +256,7 @@ def breakdown():
         for owner, attr, label in (
                 (scan_mod, "module_scan", "module-scan kernel (cross kinds)"),
                 (modules, "assembly_torch", "assembly (plain torch)"),
-                (modules.KindModule, "same_module", "same-sequence module scans (plain torch)"),
+                (modules.KindModule, "same_module", "same-sequence module scans"),
                 (modules, "fold_kind_cells", "fold"),
                 (engine, "fold_kind_cells", "fold"),
                 (modules.KindModule, "tables", "kind tables to the card"),
@@ -304,7 +304,8 @@ def main():
     dump = subprocess.run([tool, "-sass", lib.paths["module_scan"]],
                           capture_output=True, text=True)
     parts = dump.stdout.split("\t\tFunction : ")
-    wanted = [p for p in parts if f"ILi{args.sass_k}E" in p.split("\n", 1)[0]]
+    # the one-warp cross-mode instantiation with K offsets a lane
+    wanted = [p for p in parts if f"ILi{args.sass_k}ELb0ELb0E" in p.split("\n", 1)[0]]
     with open(os.path.join(args.out, f"module_scan_K{args.sass_k}.sass"), "w") as f:
         f.write("\n".join(wanted) or dump.stdout[-200000:] + dump.stderr)
     old = build_old(args.old_source) if args.old_source else None

@@ -154,3 +154,111 @@ def test_port_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert float(out.stdout.strip().splitlines()[-1]) >= 0
+
+
+def _variant_pair(seed):
+    rng = np.random.default_rng(1400 + seed)
+    al = get_alphabet("dna")
+    cfg = random_config(rng, al, flanks=False)
+    ref, qry = related_pair(rng, al, max_len=14)
+    return cfg, al.decode(ref), al.decode(qry)
+
+
+def _both(cfg, r, q, settings=None, **call):
+    """The JAX facade's record and the port's, on the same settings and call."""
+    from tsalign_tpu_torch.convert import range_from_reference
+
+    settings = settings or {}
+    want = JaxFacade(costs=cfg, engine="jax", **settings).align(r, q, **call)
+    if "range_" in call:
+        call = dict(call, range_=range_from_reference(call["range_"]))
+    got = tsalign_tpu_torch.Aligner(costs=config_from_reference(cfg), device="cpu",
+                                    **settings).align(r, q, **call)
+    return got, want
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_prune_range_sub_range_matches_jax_record(seed):
+    from tsalign_tpu.geometry import AlignmentRange
+
+    cfg, r, q = _variant_pair(seed)
+    rng = AlignmentRange(2, 1, len(r) - 1, len(q) - 2)
+    got, want = _both(cfg, r, q, range_=rng, prune_range=True)
+    assert _record(got) == _record(want)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_only_equal_descendant_strategy_matches_jax_record(seed):
+    cfg, r, q = _variant_pair(seed)
+    got, want = _both(cfg, r, q, {"template_switch_descendant_strategy": "only-equal"})
+    assert _record(got) == _record(want)
+
+
+@pytest.mark.parametrize("primaries", [(0,), (1,)])
+def test_allowed_primaries_match_jax_engine(primaries):
+    """One primary sequence for every TSM: cost, rounds, every kept field and
+    the traced alignment, engine against engine."""
+    from tsalign_tpu.jax_engine import JaxAligner
+    from tsalign_tpu_torch.engine import TorchAligner
+    from tsalign_tpu_torch.ops.common import from_device_costs
+
+    cfg, r, q = _variant_pair(3)
+    al = get_alphabet("dna")
+    ref, qry = al.encode(r), al.encode(q)
+    want_eng = JaxAligner(cfg, ref, qry, chunk=8, allowed_primaries=primaries)
+    got_eng = TorchAligner(config_from_reference(cfg), ref, qry, device="cpu", chunk=8,
+                           allowed_primaries=primaries)
+    want, got = want_eng.align(), got_eng.align()
+    assert (got.cost, got.rounds) == (want.cost, want.rounds)
+    for v, M in zip(got.primary_fields, want.primary_fields):
+        np.testing.assert_array_equal(from_device_costs(v._dev.numpy()), M)
+    for v, R in zip(got.reentry_fields, want.reentry_fields):
+        np.testing.assert_array_equal(from_device_costs(v._dev.numpy()), R)
+    (cw, aw), (cg, ag) = want_eng.align_with_traceback(), got_eng.align_with_traceback()
+    assert cg == cw and str(ag) == str(aw)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_without_secondary_deletions_matches_jax_engine(seed):
+    """allow_secondary_deletions=False: cost, rounds, fields and the traced
+    alignment equal the JAX engine's."""
+    from tsalign_tpu.jax_engine import JaxAligner
+    from tsalign_tpu_torch.engine import TorchAligner
+    from tsalign_tpu_torch.ops.common import from_device_costs
+
+    cfg, r, q = _variant_pair(10 + seed)
+    al = get_alphabet("dna")
+    ref, qry = al.encode(r), al.encode(q)
+    want_eng = JaxAligner(cfg, ref, qry, chunk=8, allow_secondary_deletions=False)
+    got_eng = TorchAligner(config_from_reference(cfg), ref, qry, device="cpu", chunk=8,
+                           allow_secondary_deletions=False)
+    assert got_eng.allow_sdel is False
+    want, got = want_eng.align(), got_eng.align()
+    assert (got.cost, got.rounds) == (want.cost, want.rounds)
+    for v, M in zip(got.primary_fields, want.primary_fields):
+        np.testing.assert_array_equal(from_device_costs(v._dev.numpy()), M)
+    for v, R in zip(got.reentry_fields, want.reentry_fields):
+        np.testing.assert_array_equal(from_device_costs(v._dev.numpy()), R)
+    (cw, aw), (cg, ag) = want_eng.align_with_traceback(), got_eng.align_with_traceback()
+    assert cg == cw and str(ag) == str(aw)
+    if cg < 2**40:
+        assert price_alignment(cfg, ref, qry, aw) == cg
+
+
+@pytest.mark.parametrize("below", [True, False])
+def test_cost_limit_matches_jax_record(below):
+    cfg, r, q = _variant_pair(4)
+    cost = JaxFacade(costs=cfg, engine="jax").align(r, q).stats()["cost"]
+    limit = cost - 1 if below else cost + 1
+    got, want = _both(cfg, r, q, cost_limit=limit)
+    assert _record(got) == _record(want)
+    assert got.has_target() != below
+
+
+@pytest.mark.parametrize("below", [True, False])
+def test_memory_limit_matches_jax_record(below):
+    cfg, r, q = _variant_pair(5)
+    est = JaxFacade(costs=cfg, engine="jax")._estimate_memory(len(r), len(q))
+    got, want = _both(cfg, r, q, memory_limit=est - 1 if below else est)
+    assert _record(got) == _record(want)
+    assert ("ExceededMemoryLimit" in got.to_toml()) == below

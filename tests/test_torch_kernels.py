@@ -19,7 +19,7 @@ import torch
 from tsalign_tpu_torch import _build
 from tsalign_tpu_torch.ops.common import (DEV_INF, DEV_INF_THRESH, dead_state_threshold,
                                           equal_mod_inf, sat_add)
-from tsalign_tpu_torch.ops.module_scan import module_scan
+from tsalign_tpu_torch.ops.module_scan import launch_plan, module_scan, module_scan_diag
 from tsalign_tpu_torch.ops.modules import module_scan_torch
 from tsalign_tpu_torch.ops import sweep as sweep_ops
 from tsalign_tpu_torch.ops.sweep import (sweep_flanked, sweep_flanked_torch, sweep_flankless,
@@ -151,15 +151,15 @@ def test_flanked_sweep_kernel_strip_edges_on_card(cuda, Wq, L, R, climb, warps):
         assert torch.equal(flanked_with(warps, subs, dd, planes, io, ie, **kw), want)
 
 
-def fill_scratch_with_noise(n_rows, Wq, F, dev):
+def fill_scratch_with_noise(n_rows, Wq, F, dev, P=1):
     """Leave noise of any sign where the allocator will put the next launch's
-    two scratch buffers: the kernel computes on what they hold outside the
-    field, and none of it may reach a cell of the field."""
+    two scratch buffers (of P sweeps): the kernel computes on what they hold
+    outside the field, and none of it may reach a cell of the field."""
     import ctypes
     n_in, n_out = ctypes.c_longlong(), ctypes.c_longlong()
     _build.check(_build.library().tsa_sweep_scratch(n_rows, Wq, F, ctypes.byref(n_in),
                                                     ctypes.byref(n_out)), "scratch")
-    noise = [torch.randint(-2**31, 2**31 - 1, (n.value,), dtype=torch.int32, device=dev)
+    noise = [torch.randint(-2**31, 2**31 - 1, (P * n.value,), dtype=torch.int32, device=dev)
              for n in (n_in, n_out)]
     torch.cuda.synchronize()
     del noise
@@ -188,6 +188,73 @@ def test_sweep_kernel_hand_over_between_warps_under_stress_on_card(cuda, Wq, L, 
     for _ in range(25):
         fill_scratch_with_noise(n_rows, Wq, F, cuda)
         assert torch.equal(run(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 3, 8])
+@pytest.mark.parametrize("L,R", [(0, 0), (2, 2)])
+def test_sweep_pair_axis_matches_single_launches_on_card(cuda, P, L, R):
+    """P sweeps of one shape in one launch, on scratch buffers that hold
+    noise, in both seed layouts: each pair equals its own launch and the
+    plain version (a pair's lanes read no other pair's scratch rows)."""
+    n_rows, Wq, F = 90, 513, L + R + 1
+    g = torch.Generator().manual_seed(100 * P + F)
+    if F == 1:
+        sets = [[a.to(cuda) for a in flankless_inputs(g, n_rows, Wq, negative=True)]
+                for _ in range(P)]
+        single, kw = sweep_flankless, {}
+        plain = sweep_flankless_torch
+    else:
+        sets = []
+        for _ in range(P):
+            subs, dd, seeds, io, ie = (a.to(cuda) for a in flanked_inputs(g, n_rows, Wq, F))
+            sets.append([subs, dd, negate_some(seeds), io, ie])
+        single, kw = sweep_flanked, dict(L=L, R=R, climb=True)
+        plain = sweep_flanked_torch
+    stacked = [torch.stack(ts) for ts in zip(*sets)]
+    # a launch of more than one pair counts as the pair axis's
+    name = ("sweep_flankless" if F == 1 else "sweep_flanked") + ("_pairs" if P > 1 else "")
+    for layout in ("rows", "planes"):
+        if layout == "planes":
+            stacked[2] = stacked[2].permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+        for _ in range(3):
+            fill_scratch_with_noise(n_rows, Wq, F, cuda, P)
+            before = _build.launches[name]
+            got = single(*stacked, **kw)
+            assert _build.launches[name] == before + 1
+            assert got.stride() == stacked[2].stride()
+            for z, ts in enumerate(sets):
+                want = plain(*ts, **kw)
+                assert torch.equal(got[z], want)
+                assert torch.equal(single(*ts, **kw), want)
+
+
+@pytest.mark.cuda
+def test_padded_batch_end_to_end_on_card(cuda):
+    """The padded_rewind fixture's pairs as one batch on the card: the
+    oracle's costs, tracebacks that reprice, every kernel launched."""
+    import json
+    import os
+
+    from tsalign_tpu_torch.alphabet import get_alphabet
+    from tsalign_tpu_torch.config import TemplateSwitchConfig
+    from tsalign_tpu_torch.parallel.batch_ts import BatchedTSAligner
+    from tsalign_tpu_torch.pricing import price_alignment
+
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
+    al = get_alphabet("dna")
+    cfg = TemplateSwitchConfig.parse_plain(
+        open(os.path.join(here, "padded_rewind_cfg.tsa")).read(), al)
+    pairs = json.load(open(os.path.join(here, "padded_rewind_pairs.json")))["pairs"]
+    enc = [(al.encode(r), al.encode(q)) for r, q in pairs]
+    _build.launches.clear()
+    bt = BatchedTSAligner(cfg, enc, chunk=64, device=cuda)
+    traced = bt.align_with_traceback()
+    assert [c for c, _ in traced] == [4, 10, 4]
+    for (r, q), (c, aln) in zip(enc, traced):
+        assert price_alignment(cfg, r, q, aln) == c
+    for name in ("sweep_flankless_pairs", "module_scan_pairs", "module_scan_diag"):
+        assert _build.launches[name] > 0, name
 
 
 @pytest.mark.cuda
@@ -263,14 +330,99 @@ def test_module_scan_kernel_skipping_mode_on_card(cuda, fwd, allow_sdel, NB, C, 
     assert bool(left.any()) and bool((got[left] == DEV_INF).all())
 
 
+def widest_module(A, diag=False):
+    """The most offsets whose tables fit a block (the kernel's one cap)."""
+    lo, hi = 2048, 16384
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        try:
+            launch_plan(mid, A, diag)
+            lo = mid
+        except ValueError:
+            hi = mid
+    return lo
+
+
 @pytest.mark.cuda
 def test_module_scan_kernel_refuses_too_wide_a_module(cuda):
     g = torch.Generator().manual_seed(9)
-    t = [a.to(cuda) for a in scan_inputs(g, 2, 1, 2049, 2)]
+    W = widest_module(6) + 1
+    t = [a.to(cuda) for a in scan_inputs(g, 2, 1, W, 2)]
     with pytest.raises(ValueError):
         module_scan(*t, fwd=True, allow_sdel=True)
+    t = [a.to(cuda) for a in scan_inputs(g, 2, 1, 2049, 2)]
     with pytest.raises(ValueError):
         module_scan(*t[:-1], t[-1][:, :1], fwd=True, allow_sdel=True)
+
+
+# Wide modules: a problem in T = ceil(W / 2048) warps (2, 2, 2 and the most).
+WIDE = [2049, 3000, 4096, "widest"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("allow_sdel", [True, False])
+@pytest.mark.parametrize("fwd", [True, False])
+@pytest.mark.parametrize("W", WIDE)
+def test_module_scan_kernel_wide_modules_on_card(cuda, W, fwd, allow_sdel):
+    W = widest_module(6) if W == "widest" else W
+    g = torch.Generator().manual_seed(W + 2 * int(fwd) + int(allow_sdel))
+    t = [a.to(cuda) for a in scan_inputs(g, 13, 3, W, 9)]
+    _, lut, sdo, _, pchar, pmask, io, ie = t
+    kw = dict(fwd=fwd, allow_sdel=allow_sdel)
+    want = module_scan_torch(*t, **kw)
+    before = _build.launches["module_scan_wide"]
+    assert torch.equal(module_scan(*t, **kw), want)
+    assert _build.launches["module_scan_wide"] == before + 1
+    skip_from = dead_state_threshold(lut, sdo, pmask, io, ie, 9, allow_sdel=allow_sdel)
+    assert equal_mod_inf(module_scan(*t, **kw, skip_from=skip_from), want)
+
+
+def diag_inputs(g, NB, W, L, A=6):
+    """Seeded inputs of a same-sequence problem (the diagonal mode)."""
+    seedT, lut, sdo, sde, pchar, pmask, io, ie = scan_inputs(g, NB, NB, W, L, A)
+    return seedT[torch.arange(NB), torch.arange(NB)].contiguous(), lut, sdo, sde, pchar, \
+        pmask, io, ie
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("allow_sdel", [True, False])
+@pytest.mark.parametrize("fwd", [True, False])
+@pytest.mark.parametrize("NB,W,L", [(9, 1, 4), (40, 33, 30), (70, 613, 69), (13, 2048, 12),
+                                    (11, 2049, 10), (9, 4096, 8)])
+def test_module_scan_diag_kernel_matches_plain_on_card(cuda, NB, W, L, fwd, allow_sdel):
+    g = torch.Generator().manual_seed(3 * W + 2 * int(fwd) + int(allow_sdel))
+    t = [a.to(cuda) for a in diag_inputs(g, NB, W, L)]
+    kw = dict(fwd=fwd, allow_sdel=allow_sdel)
+    before = _build.launches["module_scan_diag"]
+    got = module_scan_diag(*t, **kw)
+    assert _build.launches["module_scan_diag"] == before + 1
+    assert torch.equal(got, module_scan_torch(*t, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [33, 521, 2049])
+def test_module_scan_pair_axis_matches_single_launches_on_card(cuda, W):
+    """P problem sets in one launch equal P launches and the plain version,
+    in both modes and in the diagonal mode."""
+    g = torch.Generator().manual_seed(W)
+    sets = [[a.to(cuda) for a in scan_inputs(g, 13, 4, W, 11)] for _ in range(3)]
+    stacked = [torch.stack(ts) for ts in zip(*sets)]
+    kw = dict(fwd=False, allow_sdel=True)
+    before = _build.launches["module_scan_pairs"]
+    got = module_scan(*stacked, **kw)
+    assert _build.launches["module_scan_pairs"] == before + 1
+    for z, ts in enumerate(sets):
+        want = module_scan_torch(*ts, **kw)
+        assert torch.equal(got[z], module_scan(*ts, **kw)) and torch.equal(got[z], want)
+    _, lut, sdo, _, pchar, pmask, io, ie = stacked
+    skip_from = dead_state_threshold(lut, sdo, pmask, io, ie, 11, allow_sdel=True)
+    got = module_scan(*stacked, **kw, skip_from=skip_from)
+    for z, ts in enumerate(sets):
+        assert equal_mod_inf(got[z], module_scan_torch(*ts, **kw))
+    dsets = [[a.to(cuda) for a in diag_inputs(g, 17, W, 16)] for _ in range(3)]
+    got = module_scan_diag(*(torch.stack(ts) for ts in zip(*dsets)), **kw)
+    for z, ts in enumerate(dsets):
+        assert torch.equal(got[z], module_scan_torch(*ts, **kw))
 
 
 @pytest.mark.cuda

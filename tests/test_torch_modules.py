@@ -36,7 +36,7 @@ from tsalign_tpu_torch.convert import config_from_reference
 from tsalign_tpu_torch.ops import tsm_modules as port_tsm
 from tsalign_tpu_torch.ops.common import (DEV_INF, DEV_INF_THRESH, dead_state_threshold,
                                           equal_mod_inf, sat_add)
-from tsalign_tpu_torch.ops.module_scan import module_scan
+from tsalign_tpu_torch.ops.module_scan import module_scan, module_scan_diag
 from tsalign_tpu_torch.ops.modules import (
     KindModule,
     fold_kind_cells,
@@ -92,6 +92,27 @@ def test_module_scan_matches_xla_and_pallas(fwd, allow_sdel, shape):
     assert got.shape == (L + 1, NB, C) and got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want_xla)
     np.testing.assert_array_equal(got.numpy(), want_pallas)
+
+
+@pytest.mark.parametrize("fwd", [True, False])
+@pytest.mark.parametrize("allow_sdel", [True, False])
+def test_module_scan_pair_axis_matches_xla_per_set(fwd, allow_sdel):
+    """The wrapper's pair axis (P sets of one shape) on the CPU: each set
+    equals ``_module_scan_xla`` on its own."""
+    NB, C, W, L, A = 7, 3, 21, 5, 5
+    rng = np.random.default_rng(90 + int(fwd) + 2 * int(allow_sdel))
+    sets = [_scan_inputs(rng, NB, C, W, L, A) for _ in range(3)]
+    stacked = [torch.from_numpy(np.stack(xs)) for xs in zip(*(a for a, _ in sets))]
+    got = module_scan(*stacked, fwd=fwd, allow_sdel=allow_sdel)
+    assert got.shape == (3, L + 1, NB, C)
+    for z, (args, (pgo, pge)) in enumerate(sets):
+        seedT, lut, sdo, sde, pchar, pmask, _, _ = args
+        st = SimpleNamespace(L=L, W=W, dk=0 if fwd else 1, allow_sdel=allow_sdel, same_seq=False)
+        fixed = {"pchar_l": jnp.asarray(pchar), "pmask_l": jnp.asarray(pmask),
+                 "pgo": jnp.asarray(pgo), "pge": jnp.asarray(pge)}
+        want = _module_scan_xla(jnp.asarray(seedT), jnp.asarray(lut), jnp.asarray(sdo),
+                                jnp.asarray(sde), fixed, st=st)
+        np.testing.assert_array_equal(got[z].numpy(), np.asarray(want))
 
 
 def _configs():
@@ -156,6 +177,14 @@ def test_kind_tables_and_same_sequence_scan_match_jax(cfg_name):
             n_same += 1
             want = np.asarray(_same_module_jit(jkm._fixed, st=st))
             np.testing.assert_array_equal(km.same_module("cpu").numpy(), want)
+            # the diagonal mode's plain path, alone and as two sets of a pair axis
+            t = km.tables("cpu")
+            names = ("seed", "lut", "sdo", "sde", "pchar_l", "pmask_l", "io_l", "ie_l")
+            kw = dict(fwd=km.dk == 0, allow_sdel=km.allow_sdel)
+            np.testing.assert_array_equal(
+                module_scan_diag(*(t[n] for n in names), **kw).numpy(), want)
+            pair = module_scan_diag(*(torch.stack([t[n], t[n]]) for n in names), **kw)
+            np.testing.assert_array_equal(pair.numpy(), np.stack([want, want]))
     assert n_same
 
 
@@ -179,8 +208,9 @@ def _port_fold(km, spec, A_cells, bases):
     A_mod = torch.from_numpy(np.ascontiguousarray(A_cells if spec.pk == 0 else A_cells.T))
     PAD = max(0, -km.s_lo)
     width = PAD + spec.n_anti + 1 + max(0, km.chunk - 1 + km.s_hi)
-    Rk = kind_all_chunks(km, A_mod, torch.full((spec.n_p + 1, width), DEV_INF,
-                                               dtype=torch.int32), bases, PAD)
+    (Rk,) = kind_all_chunks([km], A_mod[None], np.asarray([bases]), PAD, width)
+    if Rk is None:
+        Rk = torch.full((spec.n_p + 1, width), DEV_INF, dtype=torch.int32)
     R = fold_kind_cells(torch.full(A_cells.shape, DEV_INF, dtype=torch.int32), Rk,
                         spec.n_anti_real, PAD=PAD, n_anti=spec.n_anti,
                         transpose=spec.pk == 1)

@@ -66,7 +66,30 @@ def _imported_roots(path):
 def test_port_sources_are_found():
     names = {os.path.relpath(p, ROOT) for p in _port_sources()}
     assert {"chip_smoke.py", "tsalign_tpu_torch/aligner.py", "tsalign_tpu_torch/ops/sweep.py",
-            "tsalign_tpu_torch/numpy_engine.py", "tsalign_tpu_torch/oracle.py"} <= names
+            "tsalign_tpu_torch/numpy_engine.py", "tsalign_tpu_torch/oracle.py",
+            "tsalign_tpu_torch/parallel/__init__.py",
+            "tsalign_tpu_torch/parallel/batch_ts.py"} <= names
+
+
+def test_batched_engine_runs_with_both_packages_blocked():
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['tsalign_tpu'] = None\n"
+        "import tsalign_tpu_torch\n"
+        "from tsalign_tpu_torch.alphabet import get_alphabet\n"
+        "from tsalign_tpu_torch.config import TemplateSwitchConfig\n"
+        "cfg = TemplateSwitchConfig.default(get_alphabet('dna-n'))\n"
+        "recs = tsalign_tpu_torch.align_pairs(cfg, [('ACGTTGCAAGCTTGACCATGGCA', "
+        "'ACGTTGCATTGCAAGTTGACCATGGCA'), ('ACGTACGTTTGCA', 'ACGTACGATTGCA')], device='cpu')\n"
+        "assert all(r.has_target for r in recs)\n"
+        "assert not any(m.split('.')[0] in ('jax', 'tsalign_tpu') for m, v in "
+        "sys.modules.items() if v is not None)\n"
+        "print(*[r.result.cost for r in recs])\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert all(float(c) >= 0 for c in out.stdout.split())
 
 
 @pytest.mark.parametrize("path", [os.path.relpath(p, ROOT) for p in _port_sources()])

@@ -280,3 +280,44 @@ def test_flankless_plain_is_the_flanked_plain_without_flanks(seed, n_rows, Wq, c
         jnp.asarray(sub), jnp.asarray(dd), jnp.asarray(seeds), jnp.asarray(io),
         jnp.asarray(ie), interpret=True))
     np.testing.assert_array_equal(want.numpy(), want_pallas)
+
+
+@pytest.mark.parametrize("L,R", [(0, 0), (2, 1)])
+def test_sweep_pair_axis_matches_xla_per_pair(L, R):
+    """The wrappers' pair axis on the CPU (the batched engine's sweep): three
+    poison-padded pairs of one bucket in both seed layouts, each equal to
+    ``_sweep_jit`` on its own."""
+    rng = np.random.default_rng(4100 + L)
+    al = get_alphabet("dna")
+    cfg = random_config(rng, al, flanks=L + R > 0)
+    cfg.left_flank_length, cfg.right_flank_length = L, R
+    F, n = L + R + 1, 12
+    tables, seeds, want = [], [], []
+    for _ in range(3):
+        ref, qry = random_pair(rng, al, max_len=n, min_len=3)
+        ref = np.concatenate([ref, np.full(n - len(ref), al.size, ref.dtype)])
+        qry = np.concatenate([qry, np.full(n - len(qry), al.size, qry.dtype)])
+        jw = JaxPrimarySweep(cfg, ref, qry)
+        pw = PrimarySweep(config_from_reference(cfg), ref, qry)
+        s = np.full((F, 3, n + 1, n + 1), INF, dtype=np.int64)
+        s[R, 0, 0, 0] = 0
+        for _ in range(4):
+            s[int(rng.integers(0, F)), int(rng.integers(0, 3)), int(rng.integers(0, n + 1)),
+              int(rng.integers(0, n + 1))] = int(rng.integers(0, 9))
+        s = to_device_costs(s)
+        arrays = {"p": jw._rows["primary"], "l": jw._rows["left"], "r": jw._rows["right"],
+                  "ins": jw._ins}
+        want.append(np.asarray(_sweep_jit(jnp.asarray(s), arrays, L=L, R=R, climb=True)))
+        tables.append(pw._inputs_on("cpu"))
+        seeds.append(torch.from_numpy(s))
+    stacked = [torch.stack(ts) for ts in zip(*tables)]
+    planes = torch.stack(seeds).view(3, F * 3, n + 1, n + 1).permute(0, 2, 1, 3)
+    for layout in (planes, planes.contiguous()):
+        if F == 1:
+            M = sweep_flankless(stacked[0], stacked[1], layout, stacked[2], stacked[3])
+        else:
+            M = sweep_flanked(stacked[0], stacked[1], layout, stacked[2], stacked[3],
+                              L=L, R=R, climb=True)
+        got = M.permute(0, 2, 1, 3).reshape(3, F, 3, n + 1, n + 1)
+        for z in range(3):
+            np.testing.assert_array_equal(got[z].numpy(), want[z])

@@ -9,11 +9,12 @@ postprocessing, oracle) and imports neither ``tsalign_tpu`` nor JAX.
     >>> import tsalign_tpu_torch
     >>> result = tsalign_tpu_torch.align("ACGT", "ACGT", device="cuda")
     >>> result.cigar()
+    >>> records = tsalign_tpu_torch.align_pairs(config, [("ACGT", "ACGA")], device="cuda")
 """
 
 __version__ = "0.1.0"
 
-__all__ = ["align", "Aligner"]
+__all__ = ["align", "Aligner", "align_pairs"]
 
 
 def __getattr__(name):
@@ -22,4 +23,8 @@ def __getattr__(name):
         from . import aligner
 
         return getattr(aligner, name)
+    if name == "align_pairs":
+        from .parallel import batch_ts
+
+        return batch_ts.align_pairs
     raise AttributeError(f"module 'tsalign_tpu_torch' has no attribute {name!r}")

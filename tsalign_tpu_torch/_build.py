@@ -29,12 +29,16 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-    "-split-compile=0",  # the module scan's 64 instantiations, on every core
+    "-split-compile=0",  # the module scan's 192 instantiations, on every core
 ]
 
 # Kernel launches per wrapper name: each wrapper adds one where it launches
 # its CUDA kernel, and nowhere else (the plain CPU path does not count).
 launches: collections.Counter = collections.Counter()
+# Device time of the launches: None (off), or a list that each wrapper
+# extends with (name, start event, end event) around its launch, for a
+# caller that wants the kernels' share of a run (chip_smoke.py phase 7).
+kernel_events = None
 
 _lib = None
 
@@ -44,15 +48,18 @@ _LL = ctypes.c_longlong
 # C entry point -> (source stem, argument types)
 _SIGNATURES = {
     # subs, ddrows, seeds, io, ie, out, skewed_in, skewed_out, n_rows, Wq, L, R,
-    # climb, dd_stride, row_stride, plane_stride, warps, stream (both sweeps)
-    "tsa_sweep": ("sweep", [_P] * 8 + [_I] * 6 + [_LL] * 2 + [_I] + [_P]),
+    # climb, dd_stride, row_stride, plane_stride, warps, P, subs_pair, dd_pair,
+    # seeds_pair, ins_pair, stream (both sweeps)
+    "tsa_sweep": ("sweep", [_P] * 8 + [_I] * 6 + [_LL] * 2 + [_I] * 2 + [_LL] * 4 + [_P]),
     # n_rows, Wq, F, in_ints (out), out_ints (out)
     "tsa_sweep_scratch": ("sweep", [_I] * 3 + [_P] * 2),
     # out (clocks, value), n, stream
     "tsa_dpx_chain": ("sweep", [_P, _I, _P]),
     # seedT, lut, sdo, sde, pchar, pmask, io, ie, out,
-    # NB, C, W, L, A, fwd, allow_sdel, skip_from, stream
-    "tsa_module_scan": ("module_scan", [_P] * 9 + [_I] * 8 + [_P]),
+    # P, NB, C, W, L, A, fwd, allow_sdel, skip_from, diag, stream
+    "tsa_module_scan": ("module_scan", [_P] * 9 + [_I] * 10 + [_P]),
+    # W, A, diag, K (out), T (out), G (out), bytes (out)
+    "tsa_module_scan_plan": ("module_scan", [_I] * 3 + [_P] * 4),
 }
 
 
@@ -117,6 +124,32 @@ def resources(stem: str) -> list:
     return [dict(name=m["name"], registers=int(m["regs"]), stack=int(m["stack"]),
                  spill_stores=int(m["st"]), spill_loads=int(m["ld"]))
             for m in _PTXAS.finditer(log)]
+
+
+def timed(name: str, launch):
+    """Run `launch()` (a C entry point's call; returns its code), between
+    two CUDA events when `kernel_events` is a list."""
+    if kernel_events is None:
+        return launch()
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    code = launch()
+    end.record()
+    kernel_events.append((name, start, end))
+    return code
+
+
+def kernel_ms() -> dict:
+    """Device milliseconds of the launches in `kernel_events`, per name."""
+    import torch
+
+    torch.cuda.synchronize()
+    out = collections.Counter()
+    for name, start, end in kernel_events or ():
+        out[name] += start.elapsed_time(end)
+    return dict(out)
 
 
 def check(code: int, what: str) -> None:

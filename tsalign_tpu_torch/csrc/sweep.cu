@@ -120,7 +120,9 @@
 //     151-222 registers.  A launch takes as many warps as the row has
 //     super-tiles, up to 8 (scripts/torch_port_sweep_probe.py --tune times
 //     fewer).
-// One block runs one pair; filling the other SMs is the batched engine's work.
+// One block runs one pair; a launch of P pairs (the batched engine's) runs P
+// blocks, one on each SM, and the re-ordering kernels take the pair on
+// their grid's third axis.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -161,7 +163,23 @@ struct Params {
   int* skewed_out;  // [super-tile][time][3 planes of 32 K]
   int n_rows, Wq, L, R, climb, dd_stride;
   long long row_stride, plane_stride;
+  // The pair axis: P sweeps of one shape, pair z at these offsets (in ints)
+  // from the pointers above; its scratch rows are its own.
+  long long subs_pair, dd_pair, seeds_pair, ins_pair, in_pair, out_pair;
 };
+
+// The parameters of pair z.
+__device__ __forceinline__ Params at_pair(Params p, long long z) {
+  p.subs += z * p.subs_pair;
+  p.ddrows += z * p.dd_pair;
+  p.seeds += z * p.seeds_pair;
+  p.out += z * p.seeds_pair;
+  p.io += z * p.ins_pair;
+  p.ie += z * p.ins_pair;
+  p.skewed_in += z * p.in_pair;
+  p.skewed_out += z * p.out_pair;
+  return p;
+}
 
 // Table (1 left flank, 2 right flank) of the climb edges into layer fi, or -1.
 __host__ __device__ __forceinline__ int climb_table(int fi, int R, int climb) {
@@ -277,6 +295,7 @@ __device__ __forceinline__ void copy_wait() {
 // One block a (step, super-tile): the inputs of step s = r F + fi, re-ordered.
 template <int K, bool FLANKED>
 __global__ void skew_in_kernel(Params p) {
+  p = at_pair(p, blockIdx.z);
   constexpr int TW = 32 * K;
   constexpr int P = FLANKED ? 5 : 4;
   constexpr int ROW = in_row_ints(K, FLANKED);
@@ -314,6 +333,7 @@ __global__ void skew_in_kernel(Params p) {
 // One block a (step, super-tile): the results of step s, back in place.
 template <int K>
 __global__ void skew_out_kernel(Params p) {
+  p = at_pair(p, blockIdx.z);
   constexpr int TW = 32 * K;
   constexpr int ROW = out_row_ints(K);
   const int F = p.L + p.R + 1;
@@ -335,6 +355,7 @@ __global__ void skew_out_kernel(Params p) {
 template <int K, bool FLANKED, bool CROSS>
 __global__ void __launch_bounds__(MAX_WARPS * 32, 1) sweep_kernel(Params p) {
   static_assert(K % 4 == 0, "a strip moves as 16-byte accesses");
+  p = at_pair(p, blockIdx.x);  // one block a pair
   extern __shared__ __align__(16) int smem[];
   constexpr int TW = 32 * K;  // columns of a super-tile
   constexpr int P = FLANKED ? 5 : 4;
@@ -741,7 +762,7 @@ __global__ void dpx_chain_kernel(long long* out, int n, int a, int b, int c) {
 }
 
 template <int K, bool FLANKED>
-int launch(const Params& p, int warps, cudaStream_t stream) {
+int launch(const Params& p, int P, int warps, cudaStream_t stream) {
   const int F = p.L + p.R + 1;
   const int n_tiles = (p.Wq + 32 * K - 1) / (32 * K);
   if (warps <= 0) warps = MAX_WARPS;
@@ -756,9 +777,9 @@ int launch(const Params& p, int warps, cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SHARED);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(p.n_rows * F, n_tiles);
+  const dim3 grid(p.n_rows * F, n_tiles, P);
   skew_in_kernel<K, FLANKED><<<grid, 32 * K < 256 ? 32 * K : 256, 0, stream>>>(p);
-  kernel<<<1, warps * 32, bytes, stream>>>(p);
+  kernel<<<P, warps * 32, bytes, stream>>>(p);
   skew_out_kernel<K><<<grid, 32 * K < 256 ? 32 * K : 256, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -779,17 +800,27 @@ extern "C" int tsa_sweep_scratch(int n_rows, int Wq, int F, long long* in_ints,
 }
 
 // warps is 1 .. 8, or 0 for as many as the super-tiles of a row and the
-// shared memory of a block allow.  The scratch buffers are 16-byte aligned
-// and hold what tsa_sweep_scratch says.
+// shared memory of a block allow.  P sweeps of one shape run in one launch,
+// one block of the wavefront each: pair z's tables, seeds and output lie
+// subs_pair, dd_pair, ins_pair (io and ie) and seeds_pair (seeds and out)
+// ints after pair 0's, and its scratch rows in_ints and out_ints (of
+// tsa_sweep_scratch) after pair 0's, in buffers of P times those.  The
+// scratch buffers are 16-byte aligned.
 extern "C" int tsa_sweep(const int* subs, const int* ddrows, const int* seeds, const int* io,
                          const int* ie, int* out, int* skewed_in, int* skewed_out, int n_rows,
                          int Wq, int L, int R, int climb, int dd_stride, long long row_stride,
-                         long long plane_stride, int warps, void* stream) {
+                         long long plane_stride, int warps, int P, long long subs_pair,
+                         long long dd_pair, long long seeds_pair, long long ins_pair,
+                         void* stream) {
+  constexpr int K = COLUMNS_A_LANE;
+  if (P < 1 || P > 65535) return (int)cudaErrorInvalidValue;
+  const int F = L + R + 1;
+  const long long rows = (long long)((Wq + 32 * K - 1) / (32 * K)) * tile_times(n_rows, F);
   Params p{subs, ddrows, seeds, io, ie, out, skewed_in, skewed_out, n_rows, Wq, L, R, climb,
-           dd_stride, row_stride, plane_stride};
+           dd_stride, row_stride, plane_stride, subs_pair, dd_pair, seeds_pair, ins_pair,
+           rows * in_row_ints(K, F > 1), rows * out_row_ints(K)};
   cudaStream_t st = (cudaStream_t)stream;
-  return L + R > 0 ? launch<COLUMNS_A_LANE, true>(p, warps, st)
-                   : launch<COLUMNS_A_LANE, false>(p, warps, st);
+  return L + R > 0 ? launch<K, true>(p, P, warps, st) : launch<K, false>(p, P, warps, st);
 }
 
 // out[0] = clocks of n dependent __viaddmin_s32 in one thread, out[1] their value.

@@ -92,6 +92,7 @@ class TorchAligner:
         prune_range: bool = False,
         chunk: int = 64,
         allowed_primaries=(0, 1),
+        allow_secondary_deletions: bool = True,
     ):
         self.device = torch.device(device)
         self.config = config
@@ -100,15 +101,17 @@ class TorchAligner:
         self.qry = np.asarray(query)
         n_r, n_q = len(self.ref), len(self.qry)
         self.n_r, self.n_q = n_r, n_q
-        if (real_seq_length(self.ref, config.alphabet.size) != n_r
-                or real_seq_length(self.qry, config.alphabet.size) != n_q):
-            raise NotImplementedError(
-                "poison-padded problems are not ported yet (ROADMAP queue 1 item 9)"
-            )
+        # Real content lengths of possibly poison-padded inputs (bucketed
+        # problems): every structural feasibility (seed walks, strict
+        # reentry, the exit walk) derives from these; the padded lengths
+        # only drive the shapes.
+        self.n_r_real = real_seq_length(self.ref, config.alphabet.size)
+        self.n_q_real = real_seq_length(self.qry, config.alphabet.size)
+        self._padded = self.n_r_real != n_r or self.n_q_real != n_q
         self.range = range_ or AlignmentRange.complete(n_r, n_q)
         self.max_ts = max_template_switches
         self.prune_range = prune_range
-        self.allow_sdel = True
+        self.allow_sdel = allow_secondary_deletions
         self.chunk = chunk
         self.cells_swept = 0
         self._validate()
@@ -276,7 +279,9 @@ class TorchAligner:
             for sk in (0, 1):
                 for dk in (0, 1):
                     spec = make_kind_spec(
-                        self.config, self.n_r, self.n_q, pk, sk, dk, sdel_budget=budget
+                        self.config, self.n_r, self.n_q, pk, sk, dk, sdel_budget=budget,
+                        n_ref_real=self.n_r_real if self._padded else None,
+                        n_qry_real=self.n_q_real if self._padded else None,
                     )
                     if spec is None:
                         continue
@@ -344,8 +349,8 @@ class TorchAligner:
                 A_dev[spec.pk] = torch.from_numpy(np.ascontiguousarray(A_mod)).to(self.device)
             PAD = max(0, -km.s_lo)
             width = PAD + spec.n_anti + 1 + max(0, km.chunk - 1 + km.s_hi)
-            Rk_pad = full_inf((spec.n_p + 1, width), self.device)
-            Rk_pad = kind_all_chunks(km, A_dev[spec.pk], Rk_pad, bases, PAD)
+            (Rk_pad,) = kind_all_chunks([km], A_dev[spec.pk][None], np.asarray([bases]),
+                                        PAD, width)
             R = fold_kind_cells(
                 R, Rk_pad, spec.n_anti_real, PAD=PAD, n_anti=spec.n_anti,
                 transpose=spec.pk == 1,

@@ -11,8 +11,8 @@ Counterpart of ``tsalign_tpu/ops/jax_modules.py``.  Per kind (pk, sk, dk):
      segment a sliding-window min over s with the anti-gap walk bands and
      kill rows, the ldiff = 0 term, anti(s), then the diagonal min-fold to
      R_pad[p, c + s];
-  3. the chunk driver (`kind_all_chunks`) and the fold into the (ref, query)
-     reentry field (`fold_kind_cells`).
+  3. the chunk driver (`kind_all_chunks`, one pair or a batch of pairs) and
+     the fold into the (ref, query) reentry field (`fold_kind_cells`).
 
 The TPU workarounds of the JAX package (VMEM and scan-budget chunk clamps,
 skew-reshape shears, gather-free masked shifts) are not ported: the chunk
@@ -110,11 +110,6 @@ class KindModule:
         allow_secondary_deletions: bool = True,
         lut_cache: Optional[dict] = None,
     ):
-        if spec.bucketed:
-            raise NotImplementedError(
-                "poison-padded (bucketed) problems are not ported yet "
-                "(ROADMAP queue 1 item 9)"
-            )
         self.spec = spec
         self.same_seq = spec.same_seq
         self.dk = spec.dk
@@ -230,6 +225,12 @@ class KindModule:
                                      (max(0, Al - b2), min(n_p, Al - a - 1)),
                                      Al - b2))
         self.plans = tuple(plans)
+        # A poison-padded (bucketed) problem: the positive-ldiff exit walk
+        # p2 + ldiff <= Ah takes the real anti length, a value of this pair
+        # (`assembly_torch`); the shapes and the other plans stay the
+        # bucket's, shared by every pair of it.
+        self.padded = spec.bucketed
+        self.ah_real = min(anti_hi, spec.n_anti_real)
 
     def host_tables(self) -> dict:
         """The kind's int32 numpy tables, named as ``JaxKindModule._fixed``."""
@@ -260,11 +261,14 @@ class KindModule:
 
     def same_module(self, device) -> torch.Tensor:
         """Intra-sequence kinds: the module scan is independent of the entry
-        field, so it runs once per kind and device (``_same_module_jit``)."""
+        field, so it runs once per kind and device (``_same_module_jit``),
+        on the card as the kernel's diagonal mode."""
+        from .module_scan import module_scan_diag
+
         key = str(device)
         if key not in self._b_pre:
             t = self.tables(device)
-            self._b_pre[key] = module_scan_torch(
+            self._b_pre[key] = module_scan_diag(
                 t["seed"], t["lut"], t["sdo"], t["sde"], t["pchar_l"],
                 t["pmask_l"], t["io_l"], t["ie_l"],
                 fwd=self.dk == 0, allow_sdel=self.allow_sdel,
@@ -345,8 +349,38 @@ def _band_masked(km: KindModule, plan: SegPlan, D3pad, b0: int, b1: int):
     return _masked_window_min(src, lambda u: u <= hi_u, w, km.S)
 
 
+def _positive_padded(km: KindModule, plan: SegPlan, D3pad):
+    """A positive-ldiff segment of a poison-padded problem
+    (``jax_modules._assembly_positive_traced``): row p2's feasible ldiff
+    range is [a, min(b, ah - p2)] for the real anti length ah, an
+    end-anchored window of width clip(ah - a - p2 + 1, 0, w) over the w
+    offsets, empty (killed) past ah - a.  The rows up to ah - b take the
+    full window; each row of the band between takes its own width, as a
+    running minimum from the window's end read at that width."""
+    w = plan.b - plan.a + 1
+    S = km.S
+    ah = km.ah_real
+    t0 = km.OFF + km.s_lo - plan.b
+    src = D3pad[:, :, t0 : t0 + S + w - 1]
+    val = sliding_min_start(src, w)[..., :S]
+    b0, b1 = max(0, ah - plan.b + 1), min(km.n_p, ah - plan.a)
+    if b0 <= b1:
+        band = src[b0 : b1 + 1]
+        width = (ah - plan.a + 1 - torch.arange(b0, b1 + 1, device=src.device))[:, None, None]
+        run = band[:, :, w - 1 : w - 1 + S]
+        out = torch.where(width == 1, run, DEV_INF)
+        for k in range(2, w):
+            run = torch.minimum(run, band[:, :, w - k : w - k + S])
+            out = torch.where(width == k, run, out)
+        val = val.clone()
+        val[b0 : b1 + 1] = out
+    rows = torch.arange(km.n_p + 1, device=src.device)[:, None, None]
+    return torch.where(rows > ah - plan.a, DEV_INF, val)
+
+
 def assembly_torch(B, A_chunk, km: KindModule, t: dict):
-    """Reentry assembly of one chunk (static-plan branch of ``_assembly``).
+    """Reentry assembly of one chunk (static-plan branch of ``_assembly``;
+    a poison-padded problem's positive segments take `_positive_padded`).
 
     B (L+1, n_p+1, C) for cross kinds or (L+1, n_p+1) for same-sequence
     kinds; A_chunk (n_p+1, C).  Returns R_pad (n_p+1, C + S - 1) for the
@@ -371,6 +405,10 @@ def assembly_torch(B, A_chunk, km: KindModule, t: dict):
     rows = torch.arange(n_p + 1, device=dev)[:, None, None]
     U = full_inf((n_p + 1, C, S), dev)
     for plan in km.plans:
+        if km.padded and plan.positive:
+            val = _positive_padded(km, plan, D3pad)
+            U = torch.minimum(U, sat_add(val, min(plan.cost, DEV_INF)))
+            continue
         w = plan.b - plan.a + 1
         t0 = km.OFF + km.s_lo - plan.b
         val = sliding_min_start(D3pad[:, :, t0 : t0 + S + w - 1], w)[..., :S]
@@ -398,40 +436,57 @@ def assembly_torch(B, A_chunk, km: KindModule, t: dict):
     )
 
 
-def kind_chunk(km: KindModule, A_mod, e_base: int, t: dict, B_pre=None):
-    """Module + assembly of the chunk of entry columns [e_base, e_base + C)."""
+def kind_all_chunks(kms, A_b, eb_b, PAD: int, width: int):
+    """All live chunks of one kind (``_kind_all_chunks``) over one pair or a
+    batch of pairs (``_kind_map_jit``): for each chunk index, one module scan
+    over the pairs for which that chunk is live (their rows gathered onto the
+    kernel's pair axis), then each pair's assembly and min-fold into its
+    padded reentry slab at columns PAD + e_base + s_lo.  `kms` are the pairs'
+    modules of the kind, A_b (B, n_p+1, n_e) their entry fields in the kind's
+    orientation, eb_b (B, chunks) the chunk bases, -1 for a chunk that is
+    skipped.  Returns each pair's (n_p+1, width) slab, None where no chunk is
+    live."""
     from .module_scan import module_scan
 
-    C = km.chunk
-    A_chunk = A_mod[:, e_base : e_base + C]
-    if km.same_seq:
-        B = B_pre
-    else:
-        sl = slice(e_base, e_base + C)
-        seedT = sat_add(A_chunk[:, :, None], t["seed"][sl][None, :, :])
-        B = module_scan(
-            seedT.contiguous(), t["lut"][:, sl].contiguous(),
-            t["sdo"][sl].contiguous(), t["sde"][sl].contiguous(),
-            t["pchar_l"], t["pmask_l"], t["io_l"], t["ie_l"],
-            fwd=km.dk == 0, allow_sdel=km.allow_sdel, skip_from=km.skip_from,
-        )
-    return assembly_torch(B, A_chunk, km, t)
-
-
-def kind_all_chunks(km: KindModule, A_mod, Rk_pad, e_bases, PAD: int):
-    """All live chunks of a kind (``_kind_all_chunks``): a chunk base < 0 is
-    skipped; each live chunk is min-folded into the padded reentry slab at
-    columns PAD + e_base + s_lo.  Updates and returns Rk_pad."""
-    t = km.tables(A_mod.device)
-    B_pre = km.same_module(A_mod.device) if km.same_seq else None
-    for e_base in e_bases:
-        e_base = int(e_base)
-        if e_base < 0:
+    km0 = kms[0]
+    dev = A_b.device
+    C = km0.chunk
+    ts = [km.tables(dev) for km in kms]
+    slabs = [None] * len(kms)
+    levels = None
+    if not km0.same_seq:
+        names = ("pchar_l", "pmask_l", "io_l", "ie_l")
+        levels = {n: torch.stack([t[n] for t in ts]) for n in names}
+        skips = [km.skip_from for km in kms]
+        # each pair's threshold is sound for it, and so is any larger one
+        skip_from = 0 if 0 in skips else max(skips)
+    for ci in range(eb_b.shape[1]):
+        live = [i for i in range(len(kms)) if eb_b[i, ci] >= 0]
+        if not live:
             continue
-        R_pad = kind_chunk(km, A_mod, e_base, t, B_pre)
-        cols = slice(PAD + e_base + km.s_lo, PAD + e_base + km.s_lo + R_pad.shape[1])
-        Rk_pad[:, cols] = torch.minimum(Rk_pad[:, cols], R_pad)
-    return Rk_pad
+        e_base = int(eb_b[live[0], ci])
+        sl = slice(e_base, e_base + C)
+        if km0.same_seq:
+            Bs = [kms[i].same_module(dev) for i in live]
+        else:
+            idx = torch.tensor(live, device=dev)
+            seedT = torch.stack([sat_add(A_b[i, :, sl][:, :, None], ts[i]["seed"][sl][None])
+                                 for i in live])
+            Bs = module_scan(
+                seedT,
+                torch.stack([ts[i]["lut"][:, sl] for i in live]),
+                torch.stack([ts[i]["sdo"][sl] for i in live]),
+                torch.stack([ts[i]["sde"][sl] for i in live]),
+                *(levels[n].index_select(0, idx) for n in ("pchar_l", "pmask_l", "io_l", "ie_l")),
+                fwd=km0.dk == 0, allow_sdel=km0.allow_sdel, skip_from=skip_from,
+            )
+        for z, i in enumerate(live):
+            R_pad = assembly_torch(Bs[z], A_b[i, :, sl], kms[i], ts[i])
+            if slabs[i] is None:
+                slabs[i] = full_inf((km0.spec.n_p + 1, width), dev)
+            cols = slice(PAD + e_base + km0.s_lo, PAD + e_base + km0.s_lo + R_pad.shape[1])
+            slabs[i][:, cols] = torch.minimum(slabs[i][:, cols], R_pad)
+    return slabs
 
 
 def fold_kind_cells(R, Rk_pad, n_real: int, *, PAD: int, n_anti: int,

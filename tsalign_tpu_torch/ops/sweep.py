@@ -21,7 +21,10 @@ equals `sweep_flanked_torch` at L = R = 0 on the same inputs).
 The seeds of either sweep may be row-major (contiguous) or plane-major (a
 ``permute(1, 0, 2)`` view of a contiguous (planes, n_rows, Wq) tensor, the
 engine's field layout); the kernel addresses both through a row stride and a
-plane stride, and M comes back in the layout of the seeds.
+plane stride, and M comes back in the layout of the seeds.  Every argument of
+either wrapper may carry a leading pair axis: P sweeps of one shape (the
+batched engine's pairs of one bucket), one launch on CUDA with a block of the
+wavefront a pair.
 """
 
 from __future__ import annotations
@@ -66,58 +69,81 @@ def sweep_flankless_torch(sub_rows, ddrows, seeds, io, ie):
     return out
 
 
-def _check_seeds(seeds, n_rows, planes, Wq, dev):
-    """Raise unless `seeds` is an int32 (n_rows, planes, Wq) tensor on `dev`,
-    row-major (contiguous) or plane-major (a ``permute(1, 0, 2)`` view of a
-    contiguous (planes, n_rows, Wq) tensor)."""
+def _check_seeds(seeds, pre, n_rows, planes, Wq, dev):
+    """Raise unless `seeds` is an int32 (*pre, n_rows, planes, Wq) tensor on
+    `dev`, row-major (contiguous) or plane-major in each pair (a
+    ``transpose(-3, -2)`` view of a contiguous (*pre, planes, n_rows, Wq)
+    tensor)."""
     plane_major = (
-        isinstance(seeds, torch.Tensor) and seeds.dim() == 3
-        and not seeds.is_contiguous() and seeds.permute(1, 0, 2).is_contiguous()
+        isinstance(seeds, torch.Tensor) and seeds.dim() == len(pre) + 3
+        and not seeds.is_contiguous() and seeds.transpose(-3, -2).is_contiguous()
     )
-    check_tensor("seeds", seeds.permute(1, 0, 2) if plane_major else seeds,
-                 (planes, n_rows, Wq) if plane_major else (n_rows, planes, Wq), dev)
+    check_tensor("seeds", seeds.transpose(-3, -2) if plane_major else seeds,
+                 pre + ((planes, n_rows, Wq) if plane_major else (n_rows, planes, Wq)), dev)
+
+
+def _per_pair(plain, pairs: bool, args, kw):
+    """The plain version on the CPU, a pair at a time under a pair axis."""
+    if not pairs:
+        return plain(*args, **kw)
+    out = torch.empty_like(args[2])  # keeps the seeds' layout
+    for z in range(out.shape[0]):
+        out[z] = plain(*(a[z] for a in args), **kw)
+    return out
 
 
 def _launch(name, subs, ddrows, seeds, io, ie, L, R, climb, warps: int = 0):
     """Launch the sweep (its two re-ordering kernels and the wavefront
-    between them, as one call); M in the layout of the seeds.  `warps` (1 .. 8)
-    holds the block to fewer warps than the launch would take (0), for the
-    tests and the probe: the wrappers below never pass it."""
-    n_rows, planes, Wq = seeds.shape
+    between them, as one call); M in the layout of the seeds.  With a
+    leading pair axis on every argument, P sweeps of one shape run in one
+    launch, a block of the wavefront each (counted as `name`_pairs when
+    P > 1).  `warps` (1 .. 8) holds a block to fewer warps than the launch
+    would take (0), for the tests and the probe: the wrappers below never
+    pass it."""
+    pairs = seeds.dim() == 4
+    P = seeds.shape[0] if pairs else 1
+    n_rows, planes, Wq = seeds.shape[-3:]
     dev = seeds.device
     out = torch.empty_strided(seeds.shape, seeds.stride(), dtype=I32, device=dev)
-    if n_rows and Wq:
+    if P and n_rows and Wq:
         lib = _build.library()
         n_in, n_out = ctypes.c_longlong(), ctypes.c_longlong()
         _build.check(lib.tsa_sweep_scratch(n_rows, Wq, planes // 3, ctypes.byref(n_in),
                                            ctypes.byref(n_out)), name + " (scratch)")
-        # the data in the order the wavefront reads and writes it
-        skewed_in = torch.empty(n_in.value, dtype=I32, device=dev)
-        skewed_out = torch.empty(n_out.value, dtype=I32, device=dev)
-        code = lib.tsa_sweep(
+        # the data in the order the wavefront reads and writes it, a part a pair
+        skewed_in = torch.empty(P * n_in.value, dtype=I32, device=dev)
+        skewed_out = torch.empty(P * n_out.value, dtype=I32, device=dev)
+        pair_strides = ((subs.stride(0), ddrows.stride(0), seeds.stride(0), io.stride(0))
+                        if pairs else (0, 0, 0, 0))
+        count = name + ("_pairs" if P > 1 else "")
+        code = _build.timed(count, lambda: lib.tsa_sweep(
             subs.data_ptr(), ddrows.data_ptr(), seeds.data_ptr(), io.data_ptr(),
             ie.data_ptr(), out.data_ptr(), skewed_in.data_ptr(), skewed_out.data_ptr(),
-            n_rows, Wq, L, R, int(bool(climb)), ddrows.shape[1], seeds.stride(0),
-            seeds.stride(1), warps, _build.stream_ptr(dev),
-        )
-        _build.check(code, name)
-        _build.launches[name] += 1
+            n_rows, Wq, L, R, int(bool(climb)), ddrows.shape[-1], seeds.stride(-3),
+            seeds.stride(-2), warps, P, *pair_strides, _build.stream_ptr(dev),
+        ))
+        _build.check(code, count)
+        _build.launches[count] += 1
     return out
 
 
 def sweep_flankless(sub_rows, ddrows, seeds, io, ie):
-    """Flankless sweep: the plain version on the CPU, the kernel on CUDA."""
-    if sub_rows.dim() != 2:
-        raise ValueError("sub_rows must be (n_rows, Wq)")
-    n_rows, Wq = sub_rows.shape
+    """Flankless sweep: the plain version on the CPU, the kernel on CUDA.
+    Every argument may carry a leading pair axis (P sweeps of one shape, one
+    launch of a block a pair on CUDA)."""
+    if sub_rows.dim() not in (2, 3):
+        raise ValueError("sub_rows must be ([P,] n_rows, Wq)")
+    pairs = sub_rows.dim() == 3
+    pre = tuple(sub_rows.shape[:1]) if pairs else ()
+    n_rows, Wq = sub_rows.shape[-2:]
     dev = sub_rows.device
-    check_tensor("sub_rows", sub_rows, (n_rows, Wq), dev)
-    check_tensor("ddrows", ddrows, (n_rows, 2), dev)
-    _check_seeds(seeds, n_rows, 3, Wq, dev)
-    check_tensor("io", io, (Wq,), dev)
-    check_tensor("ie", ie, (Wq,), dev)
+    check_tensor("sub_rows", sub_rows, pre + (n_rows, Wq), dev)
+    check_tensor("ddrows", ddrows, pre + (n_rows, 2), dev)
+    _check_seeds(seeds, pre, n_rows, 3, Wq, dev)
+    check_tensor("io", io, pre + (Wq,), dev)
+    check_tensor("ie", ie, pre + (Wq,), dev)
     if dev.type == "cpu":
-        return sweep_flankless_torch(sub_rows, ddrows, seeds, io, ie)
+        return _per_pair(sweep_flankless_torch, pairs, (sub_rows, ddrows, seeds, io, ie), {})
     if dev.type != "cuda":
         raise ValueError(f"sweep_flankless runs on cpu or cuda, not {dev}")
     return _launch("sweep_flankless", sub_rows, ddrows, seeds, io, ie, 0, 0, False)
@@ -193,23 +219,28 @@ def sweep_flanked_torch(subs, ddrows, seeds, io, ie, *, L: int, R: int, climb: b
 
 
 def sweep_flanked(subs, ddrows, seeds, io, ie, *, L: int, R: int, climb: bool):
-    """Flank-layered sweep: the plain version on the CPU, the kernel on CUDA."""
-    if subs.dim() != 3 or subs.shape[0] != 3:
-        raise ValueError("subs must be (3, n_rows, Wq)")
+    """Flank-layered sweep: the plain version on the CPU, the kernel on CUDA.
+    Every argument may carry a leading pair axis (P sweeps of one shape, one
+    launch of a block a pair on CUDA)."""
+    if subs.dim() not in (3, 4) or subs.shape[-3] != 3:
+        raise ValueError("subs must be ([P,] 3, n_rows, Wq)")
     if L < 0 or R < 0:
         raise ValueError("flank lengths must be >= 0")
     F = L + R + 1
     if F > MAX_FLANK_LAYERS:
         raise ValueError(f"sweep_flanked takes at most {MAX_FLANK_LAYERS} flank layers, got {F}")
-    _, n_rows, Wq = subs.shape
+    pairs = subs.dim() == 4
+    pre = tuple(subs.shape[:1]) if pairs else ()
+    n_rows, Wq = subs.shape[-2:]
     dev = subs.device
-    check_tensor("subs", subs, (3, n_rows, Wq), dev)
-    check_tensor("ddrows", ddrows, (n_rows, 6), dev)
-    check_tensor("io", io, (3, Wq), dev)
-    check_tensor("ie", ie, (3, Wq), dev)
-    _check_seeds(seeds, n_rows, 3 * F, Wq, dev)
+    check_tensor("subs", subs, pre + (3, n_rows, Wq), dev)
+    check_tensor("ddrows", ddrows, pre + (n_rows, 6), dev)
+    check_tensor("io", io, pre + (3, Wq), dev)
+    check_tensor("ie", ie, pre + (3, Wq), dev)
+    _check_seeds(seeds, pre, n_rows, 3 * F, Wq, dev)
     if dev.type == "cpu":
-        return sweep_flanked_torch(subs, ddrows, seeds, io, ie, L=L, R=R, climb=bool(climb))
+        return _per_pair(sweep_flanked_torch, pairs, (subs, ddrows, seeds, io, ie),
+                         dict(L=L, R=R, climb=bool(climb)))
     if dev.type != "cuda":
         raise ValueError(f"sweep_flanked runs on cpu or cuda, not {dev}")
     return _launch("sweep_flanked", subs, ddrows, seeds, io, ie, L, R, climb)
