@@ -59,7 +59,23 @@ Phases, each ending with a line of its wall time (phase_s):
      batch's kernel time on the card by CUDA events around each launch);
      then the eight pairs of tests/fixtures/torch_port_batch_pairs.json
      (60-128 bp, two buckets): cost and CIGAR equal the JAX package's
-     batched engine's (recorded on the CPU).
+     batched engine's (recorded on the CPU);
+  8. chained mode at the reference's scale: the seeded 230 kb construction
+     of scripts/validate_chain_scale.py (10 planted reverse-complement
+     stretches, 98 substitutions) under its narrow configuration
+     (tests/fixtures/torch_port_chain_cfg.tsa) through
+     tsalign_tpu_torch.chain_align(..., target_segment=1024, device="cuda"):
+     the cost equals the constructed optimum (216), the alignment reprices
+     to it with 10 template switches, the batched engine's sweep and
+     module-scan pair axes and the diagonal mode launch, no window goes to
+     the numpy engine; the wall split by step, the batches by bucket and
+     pair count, the kernels' device time by CUDA events; then those three
+     kernels against their plain versions at the largest launch the chain
+     made of each (32 pairs in the 256 bucket), and the three pairs of
+     tests/fixtures/torch_port_chain_pairs.json (1.5 kb and 3 kb
+     constructions, a 160 bp pair under a random configuration): cost,
+     CIGAR, segments, anchors and rejoined cuts equal the JAX package's
+     (recorded on the CPU).
 Any failure raises, so the script exits nonzero before its last line.  The
 last lines are the kernels' JSON record, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -87,6 +103,7 @@ wavefront or the module scan.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import json
 import os
@@ -134,6 +151,13 @@ BATCH_FIXTURE_PAIRS = (("batch_60", 2060, 60, 12, 2), ("batch_64", 2064, 64, 10,
                        ("batch_90", 2090, 90, 16, 2), ("batch_100", 2100, 100, 16, 3),
                        ("batch_110", 2110, 110, 18, 3), ("batch_118", 2118, 118, 18, 3),
                        ("batch_124", 2124, 124, 20, 3), ("batch_128", 2128, 128, 20, 4))
+# Chained mode (phase 8): the narrow configuration of
+# scripts/validate_chain_scale.py, and the chained alignments of three pairs
+# recorded from the JAX package (scripts/make_torch_port_fixture.py chain).
+CHAIN_CFG = os.path.join(FIXTURES, "torch_port_chain_cfg.tsa")
+CHAIN_FIXTURE = os.path.join(FIXTURES, "torch_port_chain_pairs.json")
+CHAIN_SEED = 230147
+CHAIN_LENGTH = 230_000  # the reference's own scale (its 230 kb region)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4 * 2  # 64 of an SM's 128 lanes, two operations a DPX instruction
 KERNELS = {
@@ -768,6 +792,133 @@ def planted_pair(rng, n, ts_len, snps, indel, q_len=None, flank_snps=False):
     return al.decode(ref), al.decode(np.array(qry, dtype=np.int8))
 
 
+def chain_config() -> TemplateSwitchConfig:
+    """The narrow configuration of scripts/validate_chain_scale.py (jump
+    offsets and anti-gaps within +-24, TS length 6..9): a window radius of 40."""
+    with open(CHAIN_CFG) as f:
+        return TemplateSwitchConfig.parse_plain(f.read(), get_alphabet("dna-n"))
+
+
+def chain_construction(n: int, seed: int = CHAIN_SEED):
+    """The seeded pair of scripts/validate_chain_scale.py: a random reference
+    of n bases; the query copies it with a reverse-complemented 8-bp stretch
+    every n / 10 bases and a substitution every n / 100 bases away from
+    them.  Returns (reference, query, the constructed optimum under
+    `chain_config`, the planted stretches) with the sequences as int8
+    codes."""
+    comp = get_alphabet("dna-n").complement_array()
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 4, size=n).astype(np.int8)
+    qry = ref.copy()
+    ts_sites = list(range(n // 20, n - 50, max(n // 10, 100)))
+    for p in ts_sites:
+        qry[p : p + 8] = [comp[c] for c in qry[p : p + 8]][::-1]
+    snp_sites = [p for p in range(n // 40, n - 50, max(n // 100, 50))
+                 if all(abs(p - t) > 60 for t in ts_sites)]
+    for p in snp_sites:
+        qry[p] = (qry[p] + 1) % 4
+    return ref, qry, 2 * len(ts_sites) + 2 * len(snp_sites), len(ts_sites)
+
+
+class ChainMeter:
+    """Where one `chain_align` run spends its time, for the length of a
+    `with` block: host seconds (after a synchronise) of the driver's steps
+    (anchoring, chaining, the batched engine's traceback segments and its
+    cost-only probes, the per-segment engine), each batch of the batched
+    engine (traceback or probe, bucket, pairs, most rounds) and the largest
+    launch of each kernel wrapper the batches call (its shapes).  It wraps
+    the port's functions by name and puts them back on leaving."""
+
+    def __init__(self):
+        self.seconds = collections.Counter()
+        self.calls = collections.Counter()
+        self.batches = []
+        self.shapes = {}
+
+    def _patch(self, owner, name, wrap):
+        orig = getattr(owner, name)
+        self._saved.append((owner, name, orig))
+        setattr(owner, name, wrap(orig))
+
+    def _clocked(self, label_of):
+        def wrap(orig):
+            def run(*args, **kwargs):
+                label = label_of(args, kwargs)
+                t0 = time.monotonic()
+                out = orig(*args, **kwargs)
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                self.seconds[label] += time.monotonic() - t0
+                self.calls[label] += 1
+                return out
+            return run
+        return wrap
+
+    def _shaped(self, name):
+        def wrap(orig):
+            def run(*args, **kwargs):
+                shapes = [tuple(a.shape) for a in args]
+                size = args[0].numel()
+                if size > self.shapes.get(name, ((), 0))[1]:
+                    self.shapes[name] = (shapes, size)
+                return orig(*args, **kwargs)
+            return run
+        return wrap
+
+    def __enter__(self):
+        from tsalign_tpu_torch.chain import driver
+        from tsalign_tpu_torch.ops import module_scan as scan_ops
+        from tsalign_tpu_torch.parallel import batch_ts
+
+        self._saved = []
+        build = driver.Anchors.build
+        self._patch(driver, "Anchors", lambda cls: type("Anchors", (), {
+            "build": staticmethod(self._clocked(lambda a, k: "anchoring")(build))}))
+        self._patch(driver, "compute_chain", self._clocked(lambda a, k: "chaining"))
+        self._patch(driver, "_align_segments_batched", self._clocked(
+            lambda a, k: "traceback_segments" if k["with_traceback"] else "cost_probes"))
+        self._patch(driver, "_align_segment", self._clocked(
+            lambda a, k: "per_segment_engine"))
+        meter = self
+
+        def batch_align(orig):
+            def run(bt):
+                t0 = time.monotonic()
+                results = orig(bt)
+                meter.batches.append(dict(
+                    traceback=bool(bt.keep_fields), bucket=[bt.nr, bt.nq], pairs=bt.n_pairs,
+                    rounds=max(r.rounds for r in results), s=time.monotonic() - t0))
+                return results
+            return run
+
+        self._patch(batch_ts.BatchedTSAligner, "align", batch_align)
+        self._patch(scan_ops, "module_scan", self._shaped("module_scan"))
+        self._patch(batch_ts, "module_scan_diag", self._shaped("module_scan_diag"))
+        self._patch(batch_ts, "sweep_flankless", self._shaped("sweep_flankless"))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._saved):
+            setattr(owner, name, orig)
+        return False
+
+    def summary(self, wall: float) -> dict:
+        """The wall split by step (the verification pass's own logic is what
+        the steps leave of it) and the batches by mode, bucket and pairs."""
+        split = dict(self.seconds)
+        split["verification_logic"] = wall - sum(self.seconds.values())
+        by = collections.defaultdict(lambda: dict(batches=0, windows=0, rounds_max=0, s=0.0))
+        for b in self.batches:
+            key = f"{'traceback' if b['traceback'] else 'probe'} {b['bucket'][0]}x{b['bucket'][1]} P={b['pairs']}"
+            by[key]["batches"] += 1
+            by[key]["windows"] += b["pairs"]
+            by[key]["rounds_max"] = max(by[key]["rounds_max"], b["rounds"])
+            by[key]["s"] += b["s"]
+        return dict(wall_s=wall, split_s=split, calls=dict(self.calls), batches=dict(by),
+                    engine_windows=sum(b["pairs"] for b in self.batches if b["traceback"]),
+                    probe_windows=sum(b["pairs"] for b in self.batches if not b["traceback"]))
+
+
 def flanked_default(al) -> TemplateSwitchConfig:
     """The default configuration with two flank layers on either side
     (F = 5) and flank tables cheaper than the primary one (match 0,
@@ -1209,6 +1360,142 @@ def phase7_fixture():
         equal=True)
 
 
+def phase8_chain():
+    """Chained mode at the reference's scale: the CHAIN_LENGTH construction
+    through ``tsalign_tpu_torch.chain_align(..., device="cuda")`` under the
+    narrow configuration.  The cost must equal the constructed optimum, the
+    alignment reprice to it with one template switch a planted stretch, the
+    batched engine's kernels launch, and no window go to the numpy engine.
+    Returns the launches and the meter (`ChainMeter`)."""
+    cfg = chain_config()
+    ref, qry, expected, planted = chain_construction(CHAIN_LENGTH)
+    _build.launches.clear()
+    _build.kernel_events = []
+    with ChainMeter() as meter:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res = tsalign_tpu_torch.chain_align(cfg, ref, qry, target_segment=1024, device=DEV)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    kernel_ms = _build.kernel_ms()
+    _build.kernel_events = None
+    counts = dict(_build.launches)
+    if res.cost != expected:
+        raise AssertionError(f"chain: cost {res.cost}, constructed optimum {expected}")
+    priced = price_alignment(cfg, ref, qry, res.alignment)
+    if priced != res.cost:
+        raise AssertionError(f"chain: the alignment reprices to {priced}, reported {res.cost}")
+    entrances = sum(1 for _, t in res.alignment.entries if isinstance(t, TemplateSwitchEntrance))
+    if entrances != planted:
+        raise AssertionError(f"chain: {entrances} template switches, {planted} planted")
+    for name in ("sweep_flankless_pairs", "module_scan_pairs", "module_scan_diag"):
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"chain: kernel {name} was not launched")
+    if res.numpy_fallbacks:
+        raise AssertionError(f"chain: {res.numpy_fallbacks} windows went to the numpy engine")
+    say(8, chain=CHAIN_LENGTH, cost=res.cost, expected=expected, repriced=True,
+        template_switches=entrances, segments=res.segments, anchors=res.anchors,
+        anchors_native=res.anchors_native, cuts_rejoined=res.cuts_rejoined,
+        numpy_fallbacks=res.numpy_fallbacks, launches=counts, kernel_device_ms=kernel_ms,
+        kernel_device_share=sum(kernel_ms.values()) / 1e3 / wall, **meter.summary(wall))
+    return counts, meter
+
+
+def phase8_kernels(meter):
+    """The batched engine's kernels against their plain versions at the
+    largest launch the chain made of each (its pair count and shapes, read by
+    the meter), on seeded noise (the sweep's scratch buffers full of noise)."""
+    gen = torch.Generator().manual_seed(8)
+    if "sweep_flankless" not in meter.shapes or "module_scan" not in meter.shapes:
+        raise AssertionError("chain: no sweep or module-scan launch was recorded")
+    (P, n, Wq), *_ = meter.shapes["sweep_flankless"][0]
+    sets = [sweep_inputs(gen, n, Wq) for _ in range(P)]
+    sets = [[a[0], a[1], negate_some(a[2]), a[3], a[4]] for a in sets]
+    stacked = [torch.stack(ts) for ts in zip(*sets)]
+    wants = [sweep_flankless_torch(*ts) for ts in sets]
+    for run in range(3):
+        scratch_noise(n, Wq, 1, P)
+        got = sweep_flankless(*stacked)
+        for z in range(P):
+            compare("sweep_flankless_pairs", got[z], wants[z], f"chain pair {z} run {run}")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    [sweep_flankless_torch(*ts) for ts in sets]
+    torch.cuda.synchronize()
+    plain_ms = (time.monotonic() - t0) * 1e3
+    n_bytes = sum(nbytes(*ts) + nbytes(ts[2]) for ts in sets)
+    bound_ms, bound_by = bound(n_bytes, P * n * Wq * SWEEP_OPS_PER_CELL, n + Wq - 1)
+    say(8, kernel="sweep_flankless_pairs", pairs=P, shape=[n, 3, Wq], equal=True,
+        scratch_holds_noise=True, ms=cuda_ms(lambda: sweep_flankless(*stacked), 10),
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    (P, NB, C, W), _, _, _, (_, L, _) = meter.shapes["module_scan"][0][:5]
+    sets = [module_inputs(gen, NB, C, W, L) for _ in range(P)]
+    stacked = [torch.stack(ts) for ts in zip(*sets)]
+    skip_from = max(scan_skip_from(ts, True) for ts in sets)
+    for fwd in (True, False):
+        kw = dict(fwd=fwd, allow_sdel=True)
+        got = module_scan(*stacked, **kw)
+        got_skip = module_scan(*stacked, **kw, skip_from=skip_from)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        wants = [module_scan_torch(*ts, **kw) for ts in sets]
+        torch.cuda.synchronize()
+        plain_ms = (time.monotonic() - t0) * 1e3
+        for z in range(P):
+            compare("module_scan_pairs", got[z], wants[z], f"chain pair {z} fwd={fwd} exact")
+            compare("module_scan_pairs", got_skip[z], wants[z],
+                    f"chain pair {z} fwd={fwd} skipping", mod_inf=True)
+        bound_ms, bound_by, live, _ = module_scan_bound(
+            *stacked, allow_sdel=True, B_plain=torch.stack(wants), skip_from=skip_from)
+        say(8, kernel="module_scan_pairs", pairs=P, NB=NB, C=C, W=W, L=L, fwd=fwd, equal=True,
+            equal_mod_inf_skipping=True,
+            ms=cuda_ms(lambda: module_scan(*stacked, **kw, skip_from=skip_from), 10),
+            exact_ms=cuda_ms(lambda: module_scan(*stacked, **kw), 10), plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, live_share=live)
+    (P, NB, W), _, _, _, (_, L, _) = meter.shapes["module_scan_diag"][0][:5]
+    sets = []
+    for _ in range(P):
+        seedT, *rest = module_inputs(gen, NB, NB, W, L)
+        sets.append([seedT[torch.arange(NB), torch.arange(NB)].contiguous(), *rest])
+    stacked = [torch.stack(ts) for ts in zip(*sets)]
+    for fwd in (True, False):
+        kw = dict(fwd=fwd, allow_sdel=True)
+        got = module_scan_diag(*stacked, **kw)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        wants = [module_scan_torch(*ts, **kw) for ts in sets]
+        torch.cuda.synchronize()
+        plain_ms = (time.monotonic() - t0) * 1e3
+        for z in range(P):
+            compare("module_scan_diag", got[z], wants[z], f"chain pair {z} fwd={fwd}")
+        work = [module_scan_work(*ts, allow_sdel=True) for ts in sets]
+        bound_ms, bound_by = bound(sum(w[0] for w in work), sum(w[1] for w in work))
+        say(8, kernel="module_scan_diag", pairs=P, NB=NB, W=W, L=L, fwd=fwd, equal=True,
+            ms=cuda_ms(lambda: module_scan_diag(*stacked, **kw), 10), plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase8_fixture():
+    """The chain fixture's three pairs on the card: cost, CIGAR, segments,
+    anchors and rejoined cuts equal the JAX package's (recorded on the CPU)."""
+    with open(CHAIN_FIXTURE) as f:
+        fixture = json.load(f)["pairs"]
+    for p in fixture:
+        al = get_alphabet(p["alphabet"])
+        cfg = (chain_config() if p["config"] == "narrow"
+               else TemplateSwitchConfig.parse_plain(p["config"], al))
+        res = tsalign_tpu_torch.chain_align(
+            cfg, al.encode(p["reference"]), al.encode(p["query"]),
+            target_segment=p["target_segment"], device=DEV)
+        got = (res.cost, res.alignment.cigar(), res.segments, res.anchors, res.cuts_rejoined)
+        want = (p["cost"], p["cigar"], p["segments"], p["anchors"], p["cuts_rejoined"])
+        if got != want:
+            raise AssertionError(f"chain fixture {p['name']}: port {got[:1] + got[2:]} "
+                                 f"!= JAX {want[:1] + want[2:]} (or the CIGARs differ)")
+    say(8, chain_fixture=[p["name"] for p in fixture], costs=[p["cost"] for p in fixture],
+        equal=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)")
@@ -1230,6 +1517,11 @@ def main():
     flanked_batch_counts = phase7_batch(True)
     phase7_fixture()
     say(7, phase_s=time.monotonic() - t0)
+    t0 = time.monotonic()
+    chain_counts, meter = phase8_chain()
+    phase8_kernels(meter)
+    phase8_fixture()
+    say(8, phase_s=time.monotonic() - t0)
     kernels = []
     for name, meta in KERNELS.items():
         if max_err[name] is None or name not in timings:
@@ -1237,7 +1529,8 @@ def main():
         ms, plain_ms, bound_ms, bound_by = timings[name]
         by_path = {"flankless": counts.get(name, 0), "flanked": flanked_counts.get(name, 0),
                    "batch": batch_counts.get(name, 0),
-                   "flanked_batch": flanked_batch_counts.get(name, 0)}
+                   "flanked_batch": flanked_batch_counts.get(name, 0),
+                   "chain": chain_counts.get(name, 0)}
         # the launches of the newest main path that runs the kernel: the
         # batches for the variants they launch, the single pairs for the rest
         # (a batch's redo pass launches those too)

@@ -63,6 +63,25 @@ def test_minplus_scan_is_the_serial_chain_for_negative_candidates(reverse):
     np.testing.assert_array_equal(got.numpy(), _serial_chain(cand, ext, reverse))
 
 
+@pytest.mark.parametrize("dim", [2, 0, 1])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_minplus_scan_serial_form_over_many_chains(dim, reverse, monkeypatch):
+    """Over SERIAL_CHAINS chains side by side or more the scan runs the
+    serial recurrence itself: equal to the numpy chain and to the
+    log-doubling form, along any axis."""
+    rng = np.random.default_rng(50)
+    cand = _costs(rng, (24, 32, 29), -3, 60)  # 768 chains of 29
+    ext = _costs(rng, (24, 32, 29), 0, 5, p_inf=0.05)
+    assert cand.size >= tc.SERIAL_CHAINS * cand.shape[-1]
+    want = np.moveaxis(_serial_chain(cand, ext, reverse), 2, dim)
+    c, e = (torch.from_numpy(np.ascontiguousarray(np.moveaxis(x, 2, dim))) for x in (cand, ext))
+    got = tc.minplus_scan(c, e, dim=dim, reverse=reverse)
+    assert got.dtype == torch.int32 and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), want)
+    monkeypatch.setattr(tc, "SERIAL_CHAINS", 10**9)  # the log-doubling form
+    np.testing.assert_array_equal(tc.minplus_scan(c, e, dim=dim, reverse=reverse).numpy(), want)
+
+
 def test_minplus_scan_rejects_negative_extension():
     cand = torch.zeros(8, dtype=torch.int32)
     ext = torch.zeros(8, dtype=torch.int32)

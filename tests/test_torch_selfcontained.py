@@ -3,7 +3,8 @@
   * no module of ``tsalign_tpu_torch`` and not ``chip_smoke.py`` imports
     ``tsalign_tpu`` or ``jax`` (walked with ``ast``);
   * in a subprocess where both imports fail, the port aligns under the
-    default and the flanked default configuration;
+    default and the flanked default configuration, aligns a batch, and runs
+    chained mode with its anchors from the port's own ``csrc/anchors.cpp``;
   * ``convert.config_from_reference`` carries every table, cost function,
     base cost and flank length across, also under the K-scaled tie-break;
   * a config whose magnitudes overflow the int32 algebra aligns through the
@@ -44,7 +45,8 @@ FUNCTIONS = ("rq_qr_offset_costs", "rr_qq_offset_costs", "length_costs",
 
 
 def _port_sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "scripts", "torch_port_chain_probe.py")]
     for folder, _, names in os.walk(PORT):
         out += [os.path.join(folder, n) for n in names if n.endswith(".py")]
     return sorted(out)
@@ -68,7 +70,10 @@ def test_port_sources_are_found():
     assert {"chip_smoke.py", "tsalign_tpu_torch/aligner.py", "tsalign_tpu_torch/ops/sweep.py",
             "tsalign_tpu_torch/numpy_engine.py", "tsalign_tpu_torch/oracle.py",
             "tsalign_tpu_torch/parallel/__init__.py",
-            "tsalign_tpu_torch/parallel/batch_ts.py"} <= names
+            "tsalign_tpu_torch/parallel/batch_ts.py",
+            "scripts/torch_port_chain_probe.py"} | {
+                f"tsalign_tpu_torch/chain/{m}.py"
+                for m in ("__init__", "plan", "anchors", "native", "chain", "driver")} <= names
 
 
 def test_batched_engine_runs_with_both_packages_blocked():
@@ -90,6 +95,30 @@ def test_batched_engine_runs_with_both_packages_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert all(float(c) >= 0 for c in out.stdout.split())
+
+
+def test_chained_mode_runs_with_both_packages_blocked():
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['tsalign_tpu'] = None\n"
+        "import tsalign_tpu_torch\n"
+        "from chip_smoke import chain_config, chain_construction\n"
+        "from tsalign_tpu_torch.chain import native\n"
+        "ref, qry, expected, planted = chain_construction(400, 5)\n"
+        "res = tsalign_tpu_torch.chain_align(chain_config(), ref, qry, target_segment=128, "
+        "device='cpu')\n"
+        "assert res.anchors_native and res.numpy_fallbacks == 0\n"
+        "lib = native._build_and_load()._name\n"
+        "assert '/tsalign_tpu_torch/_build/libtsanchors-' in lib, lib\n"
+        "assert not any(m.split('.')[0] in ('jax', 'tsalign_tpu') for m, v in "
+        "sys.modules.items() if v is not None)\n"
+        "print(res.cost, expected)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    cost, expected = map(int, out.stdout.split())
+    assert cost == expected
 
 
 @pytest.mark.parametrize("path", [os.path.relpath(p, ROOT) for p in _port_sources()])

@@ -10,11 +10,12 @@ postprocessing, oracle) and imports neither ``tsalign_tpu`` nor JAX.
     >>> result = tsalign_tpu_torch.align("ACGT", "ACGT", device="cuda")
     >>> result.cigar()
     >>> records = tsalign_tpu_torch.align_pairs(config, [("ACGT", "ACGA")], device="cuda")
+    >>> chained = tsalign_tpu_torch.chain_align(config, ref_codes, qry_codes, device="cuda")
 """
 
 __version__ = "0.1.0"
 
-__all__ = ["align", "Aligner", "align_pairs"]
+__all__ = ["align", "Aligner", "align_pairs", "chain_align"]
 
 
 def __getattr__(name):
@@ -27,4 +28,8 @@ def __getattr__(name):
         from .parallel import batch_ts
 
         return batch_ts.align_pairs
+    if name == "chain_align":
+        from .chain import driver
+
+        return driver.chain_align
     raise AttributeError(f"module 'tsalign_tpu_torch' has no attribute {name!r}")

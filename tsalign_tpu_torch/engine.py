@@ -38,7 +38,7 @@ from .ops.modules import KindModule, fold_kind_cells, kind_all_chunks
 from .ops.primary import PrimarySweep
 from .ops.primary_sweep import GAP_NONE
 from .ops.tsm_modules import make_kind_spec, real_seq_length
-from .plan import config_digest
+from .chain.plan import config_digest
 from .traceback import TracebackEngine
 
 MAX_ROUNDS = 32
@@ -93,8 +93,18 @@ class TorchAligner:
         chunk: int = 64,
         allowed_primaries=(0, 1),
         allow_secondary_deletions: bool = True,
+        keep_fields="device",
+        use_lower_bounds: bool = True,
     ):
+        """`keep_fields`: the per-round fields an `align` keeps for the
+        traceback: "device" keeps ``fields.py`` views of the device tensors,
+        True host int64 arrays, False none (a cost-only run).
+        `use_lower_bounds`: False skips the remaining-cost bound (its value
+        iteration on the host), which only prunes; the cost is exact either
+        way."""
         self.device = torch.device(device)
+        self.keep_fields = keep_fields
+        self.use_lower_bounds = use_lower_bounds
         self.config = config
         self.allowed_primaries = tuple(allowed_primaries)
         self.ref = np.asarray(reference)
@@ -176,7 +186,10 @@ class TorchAligner:
 
     def _remaining_bound(self):
         """Admissible remaining-cost field (host numpy), memoized by content;
-        None when the relaxed value iteration does not apply."""
+        None when the relaxed value iteration does not apply or is not
+        asked for."""
+        if not self.use_lower_bounds:
+            return None
         if not hasattr(self, "_lb_cache"):
             key = (
                 config_digest(self.config),
@@ -370,10 +383,16 @@ class TorchAligner:
         res = EngineResult(cost=INF, rounds=0)
 
         def keep(M, E):
-            res.primary_fields.append(FieldView4(M, entry_cells=from_device_costs(E)))
+            if self.keep_fields is True:
+                res.primary_fields.append(from_device_costs(M.cpu().numpy()))
+            elif self.keep_fields == "device":
+                res.primary_fields.append(FieldView4(M, entry_cells=from_device_costs(E)))
 
         def keepR(R):
-            res.reentry_fields.append(FieldView2(R))
+            if self.keep_fields is True:
+                res.reentry_fields.append(from_device_costs(R.cpu().numpy()))
+            elif self.keep_fields == "device":
+                res.reentry_fields.append(FieldView2(R))
 
         root = self._root_seeds()
         t = self.max_ts

@@ -40,32 +40,34 @@ from .primary_sweep import GAP_DEL, GAP_INS, GAP_NONE
 
 
 def sweep_flankless_torch(sub_rows, ddrows, seeds, io, ie):
-    """Plain torch flankless sweep (any device)."""
-    n_rows, Wq = sub_rows.shape
+    """Plain torch flankless sweep (any device).  Every argument may carry a
+    leading pair axis: the pairs are swept side by side, each as alone."""
+    n_rows, Wq = sub_rows.shape[-2:]
     out = torch.empty_like(seeds)  # keeps the seeds' layout
-    prev = torch.full((3, Wq), DEV_INF, dtype=I32, device=sub_rows.device)
+    prev = torch.full(sub_rows.shape[:-2] + (3, Wq), DEV_INF, dtype=I32,
+                      device=sub_rows.device)
     check_extension("sweep_flankless_torch", ie)
     ext_into = shift_last(ie, 1, True)
     for r in range(n_rows):
-        d_open, d_ext = ddrows[r, 0], ddrows[r, 1]
-        any_prev = prev.amin(dim=0)
+        d_open, d_ext = ddrows[..., r, 0, None], ddrows[..., r, 1, None]
+        any_prev = prev.amin(dim=-2)
         diag = torch.clamp_max(
-            shift_last(any_prev, 1, True) + shift_last(sub_rows[r], 1, True),
+            shift_last(any_prev, 1, True) + shift_last(sub_rows[..., r, :], 1, True),
             DEV_INF,
         )
-        none_c = torch.minimum(seeds[r, GAP_NONE], diag)
+        none_c = torch.minimum(seeds[..., r, GAP_NONE, :], diag)
         del_new = torch.minimum(
-            sat_add(torch.minimum(prev[GAP_NONE], prev[GAP_INS]), d_open),
-            sat_add(prev[GAP_DEL], d_ext),
+            sat_add(torch.minimum(prev[..., GAP_NONE, :], prev[..., GAP_INS, :]), d_open),
+            sat_add(prev[..., GAP_DEL, :], d_ext),
         )
-        del_c = torch.minimum(seeds[r, GAP_DEL], del_new)
+        del_c = torch.minimum(seeds[..., r, GAP_DEL, :], del_new)
         open_c = shift_last(sat_add(torch.minimum(none_c, del_c), io), 1, True)
-        cand = torch.minimum(seeds[r, GAP_INS], open_c)
+        cand = torch.minimum(seeds[..., r, GAP_INS, :], open_c)
         ins_c = minplus_scan(cand, ext_into)
-        out[r, GAP_NONE] = none_c
-        out[r, GAP_INS] = ins_c
-        out[r, GAP_DEL] = del_c
-        prev = out[r]
+        out[..., r, GAP_NONE, :] = none_c
+        out[..., r, GAP_INS, :] = ins_c
+        out[..., r, GAP_DEL, :] = del_c
+        prev = out[..., r, :, :]
     return out
 
 
@@ -80,16 +82,6 @@ def _check_seeds(seeds, pre, n_rows, planes, Wq, dev):
     )
     check_tensor("seeds", seeds.transpose(-3, -2) if plane_major else seeds,
                  pre + ((planes, n_rows, Wq) if plane_major else (n_rows, planes, Wq)), dev)
-
-
-def _per_pair(plain, pairs: bool, args, kw):
-    """The plain version on the CPU, a pair at a time under a pair axis."""
-    if not pairs:
-        return plain(*args, **kw)
-    out = torch.empty_like(args[2])  # keeps the seeds' layout
-    for z in range(out.shape[0]):
-        out[z] = plain(*(a[z] for a in args), **kw)
-    return out
 
 
 def _launch(name, subs, ddrows, seeds, io, ie, L, R, climb, warps: int = 0):
@@ -143,7 +135,7 @@ def sweep_flankless(sub_rows, ddrows, seeds, io, ie):
     check_tensor("io", io, pre + (Wq,), dev)
     check_tensor("ie", ie, pre + (Wq,), dev)
     if dev.type == "cpu":
-        return _per_pair(sweep_flankless_torch, pairs, (sub_rows, ddrows, seeds, io, ie), {})
+        return sweep_flankless_torch(sub_rows, ddrows, seeds, io, ie)
     if dev.type != "cuda":
         raise ValueError(f"sweep_flankless runs on cpu or cuda, not {dev}")
     return _launch("sweep_flankless", sub_rows, ddrows, seeds, io, ie, 0, 0, False)
@@ -164,56 +156,60 @@ def _climb_table(fi: int, L: int, R: int, climb: bool):
 
 
 def sweep_flanked_torch(subs, ddrows, seeds, io, ie, *, L: int, R: int, climb: bool):
-    """Plain torch flank-layered sweep (any device)."""
-    _, n_rows, Wq = subs.shape
+    """Plain torch flank-layered sweep (any device).  Every argument may
+    carry a leading pair axis: the pairs are swept side by side, each as
+    alone."""
+    n_rows, Wq = subs.shape[-2:]
     F = L + R + 1
     out = torch.empty_like(seeds)
-    prev = torch.full((3 * F, Wq), DEV_INF, dtype=I32, device=subs.device)
-    check_extension("sweep_flanked_torch", ie[0])
-    ext_into = shift_last(ie[0], 1, True)
+    prev = torch.full(subs.shape[:-3] + (3 * F, Wq), DEV_INF, dtype=I32, device=subs.device)
+    check_extension("sweep_flanked_torch", ie[..., 0, :])
+    ext_into = shift_last(ie[..., 0, :], 1, True)
 
     def diag_from(src, sub_row):
         return torch.clamp_max(
-            shift_last(src.amin(dim=0), 1, True) + shift_last(sub_row, 1, True), DEV_INF
+            shift_last(src.amin(dim=-2), 1, True) + shift_last(sub_row, 1, True), DEV_INF
         )
 
     def del_from(src, d_open, d_ext):
         return torch.minimum(
-            sat_add(torch.minimum(src[GAP_NONE], src[GAP_INS]), d_open),
-            sat_add(src[GAP_DEL], d_ext),
+            sat_add(torch.minimum(src[..., GAP_NONE, :], src[..., GAP_INS, :]), d_open),
+            sat_add(src[..., GAP_DEL, :], d_ext),
         )
 
     for r in range(n_rows):
-        row = out[r]
+        row = out[..., r, :, :]
+        dd = ddrows[..., r, :, None]
         for fi in range(F):
             lo = 3 * fi
-            none_c = seeds[r, lo + GAP_NONE]
-            ins_c = seeds[r, lo + GAP_INS]
-            del_c = seeds[r, lo + GAP_DEL]
+            none_c = seeds[..., r, lo + GAP_NONE, :]
+            ins_c = seeds[..., r, lo + GAP_INS, :]
+            del_c = seeds[..., r, lo + GAP_DEL, :]
             if fi == R:
-                none_c = torch.minimum(none_c, diag_from(prev[lo : lo + 3], subs[0, r]))
-                del_c = torch.minimum(
-                    del_c, del_from(prev[lo : lo + 3], ddrows[r, 0], ddrows[r, 1])
-                )
+                here = prev[..., lo : lo + 3, :]
+                none_c = torch.minimum(none_c, diag_from(here, subs[..., 0, r, :]))
+                del_c = torch.minimum(del_c, del_from(here, dd[..., 0, :], dd[..., 1, :]))
             ct = _climb_table(fi, L, R, climb)
             if ct is not None:
-                below = prev[lo - 3 : lo]
-                none_c = torch.minimum(none_c, diag_from(below, subs[ct, r]))
+                below = prev[..., lo - 3 : lo, :]
+                none_c = torch.minimum(none_c, diag_from(below, subs[..., ct, r, :]))
                 del_c = torch.minimum(
-                    del_c, del_from(below, ddrows[r, 2 * ct], ddrows[r, 2 * ct + 1])
+                    del_c, del_from(below, dd[..., 2 * ct, :], dd[..., 2 * ct + 1, :])
                 )
                 # climb insertion: one step from the current row of the
                 # layer below, which the bottom-up order has finished
-                cur = row[lo - 3 : lo]
-                o = sat_add(torch.minimum(cur[GAP_NONE], cur[GAP_DEL]), io[ct])
-                e = sat_add(cur[GAP_INS], ie[ct])
+                cur = row[..., lo - 3 : lo, :]
+                o = sat_add(torch.minimum(cur[..., GAP_NONE, :], cur[..., GAP_DEL, :]),
+                            io[..., ct, :])
+                e = sat_add(cur[..., GAP_INS, :], ie[..., ct, :])
                 ins_c = torch.minimum(ins_c, shift_last(torch.minimum(o, e), 1, True))
             if fi == R:
-                open_c = shift_last(sat_add(torch.minimum(none_c, del_c), io[0]), 1, True)
+                open_c = shift_last(sat_add(torch.minimum(none_c, del_c), io[..., 0, :]), 1,
+                                    True)
                 ins_c = minplus_scan(torch.minimum(ins_c, open_c), ext_into)
-            row[lo + GAP_NONE] = none_c
-            row[lo + GAP_INS] = ins_c
-            row[lo + GAP_DEL] = del_c
+            row[..., lo + GAP_NONE, :] = none_c
+            row[..., lo + GAP_INS, :] = ins_c
+            row[..., lo + GAP_DEL, :] = del_c
         prev = row
     return out
 
@@ -239,8 +235,7 @@ def sweep_flanked(subs, ddrows, seeds, io, ie, *, L: int, R: int, climb: bool):
     check_tensor("ie", ie, pre + (3, Wq), dev)
     _check_seeds(seeds, pre, n_rows, 3 * F, Wq, dev)
     if dev.type == "cpu":
-        return _per_pair(sweep_flanked_torch, pairs, (subs, ddrows, seeds, io, ie),
-                         dict(L=L, R=R, climb=bool(climb)))
+        return sweep_flanked_torch(subs, ddrows, seeds, io, ie, L=L, R=R, climb=bool(climb))
     if dev.type != "cuda":
         raise ValueError(f"sweep_flanked runs on cpu or cuda, not {dev}")
     return _launch("sweep_flanked", subs, ddrows, seeds, io, ie, L, R, climb)

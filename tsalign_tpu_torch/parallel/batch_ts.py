@@ -266,7 +266,7 @@ class BatchedTSAligner:
         if not self.use_lower_bounds:
             return [None] * self.n_pairs  # see engine.DenseAligner
         if not hasattr(self, "_lb_cache"):
-            from ..plan import config_digest
+            from ..chain.plan import config_digest
             from ..lower_bounds import compute_remaining_bound
 
             key = (
@@ -335,7 +335,7 @@ class BatchedTSAligner:
         return b
 
     def _build_kind_sets(self, budget: Optional[int]) -> None:
-        from ..plan import config_digest
+        from ..chain.plan import config_digest
 
         key = (
             config_digest(self.config),
@@ -460,7 +460,7 @@ class BatchedTSAligner:
     def _stack_sweep_arrays(self):
         """The pairs' sweep tables on the device, stacked on a leading pair
         axis (the flankless or the flanked layout of ``ops/primary.py``)."""
-        from ..plan import config_digest
+        from ..chain.plan import config_digest
 
         memo_key = (
             config_digest(self.config),
