@@ -75,7 +75,24 @@ Phases, each ending with a line of its wall time (phase_s):
      tests/fixtures/torch_port_chain_pairs.json (1.5 kb and 3 kb
      constructions, a 160 bp pair under a random configuration): cost,
      CIGAR, segments, anchors and rejoined cuts equal the JAX package's
-     (recorded on the CPU).
+     (recorded on the CPU);
+  9. the command line on the card: tsalign_tpu_torch.cli.main([...]) in this
+     process, in a temporary directory.  (a) `align -r -q -o` on the
+     flankless main pair without --device (the default is the card): the
+     record, without its wall-time lines, equals phase 5's, and the flankless
+     sweep, the module scan and its diagonal mode launch; (b) `align -p -c -o
+     --device cuda` on the flanked main pair with the flanked default as
+     display() text in cfg/config.tsa: the record equals phase 6's and the
+     flanked sweep launches; (c) `preprocess` of the narrow configuration at
+     the 230 kb bucket, then `align --alignment-method a-star-chain-ts
+     --cache-directory --force-no-preprocessing` on phase 8's construction:
+     the cost is 216, the record parses back and reprices to it, its CIGAR
+     equals phase 8's, the pair axes launch; (d) `show -s -a -c -e` on the
+     three records (the plain text shows a template switch, the SVG parses)
+     and `show -n` with a --no-ts record of the flankless pair; (e) `align
+     --profile DIR` on the 60 bp fixture pair: the Chrome trace it writes
+     names the kernels of csrc/sweep.cu and csrc/module_scan.cu.  One line a
+     step: wall, cost, launches, the kernels' device ms (CUDA events).
 Any failure raises, so the script exits nonzero before its last line.  The
 last lines are the kernels' JSON record, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -104,14 +121,18 @@ wavefront or the module scan.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
+import io
 import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import xml.dom.minidom
 
 import numpy as np
 import torch
@@ -135,6 +156,7 @@ from tsalign_tpu_torch.ops.sweep import (dpx_chain_clocks, sweep_flanked, sweep_
 from tsalign_tpu_torch.oracle import OracleAligner
 from tsalign_tpu_torch.parallel.batch_ts import align_pairs
 from tsalign_tpu_torch.pricing import price_alignment
+from tsalign_tpu_torch.result import AlignmentResult
 
 DEV = "cuda"
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
@@ -158,6 +180,9 @@ CHAIN_CFG = os.path.join(FIXTURES, "torch_port_chain_cfg.tsa")
 CHAIN_FIXTURE = os.path.join(FIXTURES, "torch_port_chain_pairs.json")
 CHAIN_SEED = 230147
 CHAIN_LENGTH = 230_000  # the reference's own scale (its 230 kb region)
+# The main pairs' names, as the command line reads them from a FASTA header
+# ">reference main_pair" (phase 9 compares its records with phases 5 and 6).
+MAIN_NAMES = ("reference main_pair", "query main_pair")
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4 * 2  # 64 of an SM's 128 lanes, two operations a DPX instruction
 KERNELS = {
@@ -1071,7 +1096,8 @@ def phase5():
     _build.launches.clear()
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    res = tsalign_tpu_torch.align(r, q, device=DEV)
+    res = tsalign_tpu_torch.align(r, q, device=DEV, reference_name=MAIN_NAMES[0],
+                                  query_name=MAIN_NAMES[1])
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     counts = dict(_build.launches)
@@ -1088,7 +1114,7 @@ def phase5():
     say(5, n_r=len(r), n_q=len(q), cost=cost, repriced=priced,
         ts=res.stats()["template_switch_amount"], wall_s=wall,
         cells=cells, cells_per_s=cells / wall, launches=counts)
-    return r, q, counts
+    return r, q, counts, res.to_toml()
 
 
 def phase5_shapes(r, q):
@@ -1196,7 +1222,7 @@ def phase6():
     torch.cuda.synchronize()
     t0 = time.monotonic()
     aligner = tsalign_tpu_torch.Aligner(costs=cfg, device=DEV)
-    res = aligner.align(r, q)
+    res = aligner.align(r, q, reference_name=MAIN_NAMES[0], query_name=MAIN_NAMES[1])
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     counts = dict(_build.launches)
@@ -1217,7 +1243,7 @@ def phase6():
     say(6, n_r=len(r), n_q=len(q), cost=cost, repriced=priced, flank_ops=flank_ops,
         ts=res.stats()["template_switch_amount"], wall_s=wall, cells=cells,
         cells_per_s=cells / wall, rounds_last_pass=aligner._last_rounds, launches=counts)
-    return r, q, counts
+    return r, q, counts, res.to_toml()
 
 
 def phase6_shapes(r, q):
@@ -1366,7 +1392,7 @@ def phase8_chain():
     narrow configuration.  The cost must equal the constructed optimum, the
     alignment reprice to it with one template switch a planted stretch, the
     batched engine's kernels launch, and no window go to the numpy engine.
-    Returns the launches and the meter (`ChainMeter`)."""
+    Returns the launches, the meter (`ChainMeter`) and the CIGAR."""
     cfg = chain_config()
     ref, qry, expected, planted = chain_construction(CHAIN_LENGTH)
     _build.launches.clear()
@@ -1398,7 +1424,7 @@ def phase8_chain():
         anchors_native=res.anchors_native, cuts_rejoined=res.cuts_rejoined,
         numpy_fallbacks=res.numpy_fallbacks, launches=counts, kernel_device_ms=kernel_ms,
         kernel_device_share=sum(kernel_ms.values()) / 1e3 / wall, **meter.summary(wall))
-    return counts, meter
+    return counts, meter, res.alignment.cigar()
 
 
 def phase8_kernels(meter):
@@ -1496,6 +1522,177 @@ def phase8_fixture():
         equal=True)
 
 
+def record_lines(text):
+    """A TOML record without its wall-time lines."""
+    return [line for line in text.splitlines()
+            if not line.startswith(("duration_seconds", "runtime"))]
+
+
+def run_cli(step, argv):
+    """One run of the port's command line in this process: its printed lines,
+    the launches it made (counts set to 0 just before), the kernels' device
+    ms by CUDA events and its wall."""
+    from tsalign_tpu_torch.cli import main as cli_main
+
+    _build.launches.clear()
+    _build.kernel_events = []
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    kernel_ms = _build.kernel_ms()
+    _build.kernel_events = None
+    if rc != 0:
+        raise AssertionError(f"cli {step}: {argv[0]} exited {rc}: {out.getvalue()}")
+    return out.getvalue(), dict(_build.launches), kernel_ms, wall
+
+
+def printed_cost(step, text):
+    costs = [line.split()[1] for line in text.splitlines() if line.startswith("cost: ")]
+    if len(costs) != 1:
+        raise AssertionError(f"cli {step}: no single cost line in {text!r}")
+    return int(costs[0])
+
+
+def cli_align_main_pair(step, d, argv, facade_record, kernels):
+    """Align one main pair through the command line; its record must equal
+    the facade's (phase 5 or 6) and the kernels must launch."""
+    out_path = os.path.join(d, f"{step}.toml")
+    text, counts, kernel_ms, wall = run_cli(step, argv + ["-o", out_path])
+    with open(out_path) as f:
+        record = f.read()
+    if record_lines(record) != record_lines(facade_record):
+        raise AssertionError(f"cli {step}: the record differs from the facade's")
+    for name in kernels:
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"cli {step}: kernel {name} was not launched")
+    say(9, step=step, wall_s=wall, cost=printed_cost(step, text), record_equal=True,
+        launches=counts, kernel_device_ms=kernel_ms)
+    return out_path, counts
+
+
+def write_fasta(path, *records):
+    with open(path, "w") as f:
+        f.write("".join(f">{name}\n{seq}\n" for name, seq in records))
+
+
+def phase9(main_pair, flanked_pair, chain_cigar):
+    """The command line on the card (`tsalign_tpu_torch.cli.main`), in a
+    temporary directory: the two main pairs against the facade's records of
+    phases 5 and 6, chained mode at CHAIN_LENGTH through `preprocess` and its
+    cache, `show` on the three records, `--profile`.  Returns the launches
+    of each aligning run."""
+    al = get_alphabet("dna-n")
+    launches = {}
+    with tempfile.TemporaryDirectory() as d:
+        # (a) the flankless main pair, without --device: the default is the card
+        r, q, record = main_pair
+        ref_fa, qry_fa = os.path.join(d, "ref.fa"), os.path.join(d, "qry.fa")
+        write_fasta(ref_fa, (MAIN_NAMES[0], r))
+        write_fasta(qry_fa, (MAIN_NAMES[1], q))
+        flankless, launches["flankless"] = cli_align_main_pair(
+            "a_flankless", d, ["align", "-r", ref_fa, "-q", qry_fa], record,
+            ("sweep_flankless", "module_scan", "module_scan_diag"))
+
+        # (b) the flanked main pair, its config as display() text
+        r, q, record = flanked_pair
+        os.makedirs(os.path.join(d, "cfg"))
+        with open(os.path.join(d, "cfg", "config.tsa"), "w") as f:
+            f.write(flanked_default(al).display())
+        pair_fa = os.path.join(d, "pair.fa")
+        write_fasta(pair_fa, (MAIN_NAMES[0], r), (MAIN_NAMES[1], q))
+        flanked, launches["flanked"] = cli_align_main_pair(
+            "b_flanked", d, ["align", "-p", pair_fa, "-c", os.path.join(d, "cfg"),
+                             "--device", "cuda"], record, ("sweep_flanked", "module_scan"))
+
+        # (c) chained mode at the reference's scale, its plan from the cache.
+        # The command line segments at chain_align's default of 512 where phase
+        # 8 passes 1024: more windows and launches, the same CIGAR.
+        from tsalign_tpu_torch.chain.plan import infer_max_n
+
+        cfg = chain_config()
+        cfg_dir, cache = os.path.join(d, "chaincfg"), os.path.join(d, "cache")
+        os.makedirs(cfg_dir)
+        with open(os.path.join(cfg_dir, "config.tsa"), "w") as f:
+            f.write(cfg.display())
+        max_n = infer_max_n(CHAIN_LENGTH, CHAIN_LENGTH)
+        text, _, _, wall = run_cli("c_preprocess", ["preprocess", "-c", cfg_dir,
+                                                    "--cache-directory", cache,
+                                                    "--max-n", str(max_n)])
+        say(9, step="c_preprocess", wall_s=wall, max_n=max_n, printed=text.strip(),
+            plan_files=len(os.listdir(cache)))
+        ref, qry, expected, planted = chain_construction(CHAIN_LENGTH)
+        chain_ref, chain_qry = os.path.join(d, "chain_ref.fa"), os.path.join(d, "chain_qry.fa")
+        write_fasta(chain_ref, ("reference chain", al.decode(ref)))
+        write_fasta(chain_qry, ("query chain", al.decode(qry)))
+        chain = os.path.join(d, "chain.toml")
+        text, counts, kernel_ms, wall = run_cli(
+            "c_chain", ["align", "-r", chain_ref, "-q", chain_qry, "-c", cfg_dir,
+                        "--alignment-method", "a-star-chain-ts", "--cache-directory", cache,
+                        "--force-no-preprocessing", "-o", chain])
+        launches["chain"] = counts
+        cost = printed_cost("c_chain", text)
+        t0 = time.monotonic()
+        with open(chain) as f:
+            parsed = AlignmentResult.from_toml(f.read())
+        parse_s = time.monotonic() - t0
+        priced = price_alignment(cfg, ref, qry, parsed.alignment)
+        if not cost == int(parsed.cost) == priced == expected:
+            raise AssertionError(f"cli chain: printed {cost}, record {parsed.cost}, repriced "
+                                 f"{priced}, constructed optimum {expected}")
+        if parsed.alignment.cigar() != chain_cigar:
+            raise AssertionError("cli chain: the CIGAR differs from phase 8's chain_align")
+        for name in ("sweep_flankless_pairs", "module_scan_pairs", "module_scan_diag"):
+            if counts.get(name, 0) <= 0:
+                raise AssertionError(f"cli chain: kernel {name} was not launched")
+        say(9, step="c_chain", wall_s=wall, cost=cost, expected=expected, repriced=priced,
+            cigar_equal=True, record_bytes=os.path.getsize(chain), record_parse_s=parse_s,
+            launches=counts, kernel_device_ms=kernel_ms)
+
+        # (d) show on the three records, and -n with a no-TS record
+        nots = os.path.join(d, "nots.toml")
+        text, _, _, wall = run_cli("d_no_ts", ["align", "-r", ref_fa, "-q", qry_fa, "--no-ts",
+                                               "-o", nots])
+        say(9, step="d_no_ts", wall_s=wall, cost=printed_cost("d_no_ts", text))
+        for name, path, extra in (("flankless", flankless, ["-n", nots]),
+                                  ("flanked", flanked, []), ("chain", chain, [])):
+            svg = os.path.join(d, f"{name}.svg")
+            text, _, _, wall = run_cli(f"d_show_{name}", ["show", "-i", path, "-s", svg,
+                                                          "-a", "-c", "-e"] + extra)
+            if "Showing template switch" not in text or (extra and "No-ts CIGAR" not in text):
+                raise AssertionError(f"cli show {name}: no template switch shown")
+            t0 = time.monotonic()
+            with open(svg) as f:
+                root = xml.dom.minidom.parse(f).documentElement.tagName
+            if root != "svg":
+                raise AssertionError(f"cli show {name}: the SVG's root is {root}")
+            say(9, step=f"d_show_{name}", wall_s=wall, svg_parse_s=time.monotonic() - t0,
+                svg_bytes=os.path.getsize(svg), switches_shown=text.count("Showing template"))
+
+        # (e) --profile on the 60 bp fixture pair
+        with open(FIXTURE) as f:
+            p = json.load(f)["pairs"][0]
+        small = os.path.join(d, "small.fa")
+        write_fasta(small, ("reference", p["reference"]), ("query", p["query"]))
+        prof = os.path.join(d, "prof")
+        text, counts, kernel_ms, wall = run_cli("e_profile", ["align", "-p", small,
+                                                              "--profile", prof])
+        traces = [n for n in os.listdir(prof) if n.endswith(".pt.trace.json")]
+        if len(traces) != 1:
+            raise AssertionError(f"cli profile: trace files {os.listdir(prof)}")
+        with open(os.path.join(prof, traces[0])) as f:
+            trace = f.read()
+        named = {k: k in trace for k in ("sweep_kernel", "module_scan_kernel")}
+        if not all(named.values()) or printed_cost("e_profile", text) != p["cost"]:
+            raise AssertionError(f"cli profile: kernels named {named}, {text!r}")
+        say(9, step="e_profile", wall_s=wall, cost=p["cost"], trace_bytes=len(trace),
+            kernels_named=named, launches=counts, kernel_device_ms=kernel_ms)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)")
@@ -1505,12 +1702,12 @@ def main():
         timings.update(fn() or {})
         say(phase, phase_s=time.monotonic() - t0)
     t0 = time.monotonic()
-    r, q, counts = phase5()
+    r, q, counts, record = phase5()
     timings.update(phase5_shapes(r, q))
     say(5, phase_s=time.monotonic() - t0)
     t0 = time.monotonic()
-    r, q, flanked_counts = phase6()
-    timings.update(phase6_shapes(r, q))
+    fr, fq, flanked_counts, flanked_record = phase6()
+    timings.update(phase6_shapes(fr, fq))
     say(6, phase_s=time.monotonic() - t0)
     t0 = time.monotonic()
     batch_counts = phase7_batch(False)
@@ -1518,10 +1715,13 @@ def main():
     phase7_fixture()
     say(7, phase_s=time.monotonic() - t0)
     t0 = time.monotonic()
-    chain_counts, meter = phase8_chain()
+    chain_counts, meter, chain_cigar = phase8_chain()
     phase8_kernels(meter)
     phase8_fixture()
     say(8, phase_s=time.monotonic() - t0)
+    t0 = time.monotonic()
+    cli_counts = phase9((r, q, record), (fr, fq, flanked_record), chain_cigar)
+    say(9, phase_s=time.monotonic() - t0)
     kernels = []
     for name, meta in KERNELS.items():
         if max_err[name] is None or name not in timings:
@@ -1530,7 +1730,8 @@ def main():
         by_path = {"flankless": counts.get(name, 0), "flanked": flanked_counts.get(name, 0),
                    "batch": batch_counts.get(name, 0),
                    "flanked_batch": flanked_batch_counts.get(name, 0),
-                   "chain": chain_counts.get(name, 0)}
+                   "chain": chain_counts.get(name, 0),
+                   **{f"cli_{k}": v.get(name, 0) for k, v in cli_counts.items()}}
         # the launches of the newest main path that runs the kernel: the
         # batches for the variants they launch, the single pairs for the rest
         # (a batch's redo pass launches those too)

@@ -4,7 +4,9 @@
     ``tsalign_tpu`` or ``jax`` (walked with ``ast``);
   * in a subprocess where both imports fail, the port aligns under the
     default and the flanked default configuration, aligns a batch, and runs
-    chained mode with its anchors from the port's own ``csrc/anchors.cpp``;
+    chained mode with its anchors from the port's own ``csrc/anchors.cpp``,
+    and its command line aligns a pair on the CPU and renders the record
+    with ``show``;
   * ``convert.config_from_reference`` carries every table, cost function,
     base cost and flank length across, also under the K-scaled tie-break;
   * a config whose magnitudes overflow the int32 algebra aligns through the
@@ -73,7 +75,11 @@ def test_port_sources_are_found():
             "tsalign_tpu_torch/parallel/batch_ts.py",
             "scripts/torch_port_chain_probe.py"} | {
                 f"tsalign_tpu_torch/chain/{m}.py"
-                for m in ("__init__", "plan", "anchors", "native", "chain", "driver")} <= names
+                for m in ("__init__", "plan", "anchors", "native", "chain", "driver")} | {
+                f"tsalign_tpu_torch/show/{m}.py"
+                for m in ("__init__", "renderer", "parse_template_switches", "plain_text",
+                          "arrangement", "svg", "png")} | {
+                "tsalign_tpu_torch/cli.py", "tsalign_tpu_torch/fasta.py"} <= names
 
 
 def test_batched_engine_runs_with_both_packages_blocked():
@@ -119,6 +125,26 @@ def test_chained_mode_runs_with_both_packages_blocked():
     assert out.returncode == 0, out.stderr
     cost, expected = map(int, out.stdout.split())
     assert cost == expected
+
+
+def test_command_line_runs_with_both_packages_blocked(tmp_path):
+    (tmp_path / "pair.fa").write_text(
+        ">ref\nACGTTGCAAGCTTGACCATGGCA\n>qry\nACGTTGCATTGCAAGTTGACCATGGCA\n")
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['tsalign_tpu'] = None\n"
+        "from tsalign_tpu_torch.cli import main\n"
+        "assert main(['align', '-p', 'pair.fa', '-o', 'rec.toml', '--device', 'cpu']) == 0\n"
+        "assert main(['show', '-i', 'rec.toml', '-s', 'rec.svg', '-a', '-c', '-e']) == 0\n"
+        "assert not any(m.split('.')[0] in ('jax', 'tsalign_tpu') for m, v in "
+        "sys.modules.items() if v is not None)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("cost: 4\ncigar: 8=[TSQRF:")
+    assert "Showing template switch 1" in out.stdout
+    assert (tmp_path / "rec.svg").read_text().startswith("<svg")
 
 
 @pytest.mark.parametrize("path", [os.path.relpath(p, ROOT) for p in _port_sources()])

@@ -11,6 +11,8 @@ postprocessing, oracle) and imports neither ``tsalign_tpu`` nor JAX.
     >>> result.cigar()
     >>> records = tsalign_tpu_torch.align_pairs(config, [("ACGT", "ACGA")], device="cuda")
     >>> chained = tsalign_tpu_torch.chain_align(config, ref_codes, qry_codes, device="cuda")
+
+The command line is ``python -m tsalign_tpu_torch.cli align | show | preprocess``.
 """
 
 __version__ = "0.1.0"

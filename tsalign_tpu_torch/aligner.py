@@ -24,11 +24,13 @@ Strategy mapping to the dense engine:
     deterministic (no search frontier), so it never trips.
 
 This is the port's copy of ``tsalign_tpu/aligner.py``.  It differs in the
-engine choice only: `device` is a required setting, ``_run_engine_raw`` runs
-``engine.TorchAligner`` on that device whatever the sequence length and, on
-an ``OverflowError`` from the int32 algebra, the exact int64 numpy engine
-(``numpy_engine.DenseAligner``); the `engine` setting is gone, and the
-plain-text view raises until the ``show/`` package is ported.
+engine choice only.  The `engine` setting takes ``"device"`` (the default)
+or ``"numpy"``; no value picks the engine by sequence length, so no pair
+leaves the device unless the caller asks.  Under ``"device"``, `device` is
+a required setting and ``_run_engine_raw`` runs ``engine.TorchAligner`` on
+it whatever the sequence length and, on an ``OverflowError`` from the int32
+algebra, the exact int64 numpy engine (``numpy_engine.DenseAligner``).
+Under ``"numpy"`` it runs that numpy engine alone.
 """
 
 from __future__ import annotations
@@ -66,11 +68,14 @@ class Aligner:
     template_switch_descendant_strategy: str = "any"  # any | only-equal
     no_ts: bool = False
     force_label_correcting: bool = False  # accepted, ignored (dense is exact)
+    engine: str = "device"  # device | numpy
     chunk: int = 64
-    device: Optional[str] = None  # required: "cuda", "cpu", ...
+    device: Optional[str] = None  # required by the device engine: "cuda", "cpu", ...
 
     def __post_init__(self):
-        if self.device is None:
+        if self.engine not in ("device", "numpy"):
+            raise ValueError(f"Aligner: engine must be 'device' or 'numpy', not {self.engine!r}")
+        if self.engine == "device" and self.device is None:
             raise ValueError("Aligner needs an explicit device, e.g. device='cuda'")
         if self.costs is None:
             self.costs = TemplateSwitchConfig.default(get_alphabet(self.alphabet))
@@ -180,18 +185,19 @@ class Aligner:
             prune_range=prune_range,
             allowed_primaries=allowed_primaries,
         )
-        try:
-            # The per-round fields stay on the device; the traceback
-            # fetches row blocks on demand (fields.py).
-            eng = TorchAligner(
-                cfg, ref_arr, qry_arr, device=self.device, chunk=self.chunk, **kw
-            )
-            out = eng.align_with_traceback()
-            self._last_cells = getattr(self, "_last_cells", 0) + eng.cells_swept
-            self._last_rounds = getattr(eng, "last_rounds", 1)
-            return out
-        except OverflowError:
-            pass  # fall back to the exact int64 numpy engine
+        if self.engine == "device":
+            try:
+                # The per-round fields stay on the device; the traceback
+                # fetches row blocks on demand (fields.py).
+                eng = TorchAligner(
+                    cfg, ref_arr, qry_arr, device=self.device, chunk=self.chunk, **kw
+                )
+                out = eng.align_with_traceback()
+                self._last_cells = getattr(self, "_last_cells", 0) + eng.cells_swept
+                self._last_rounds = getattr(eng, "last_rounds", 1)
+                return out
+            except OverflowError:
+                pass  # fall back to the exact int64 numpy engine
         eng = DenseAligner(cfg, ref_arr, qry_arr, **kw)
         out = eng.align_with_traceback()
         self._last_cells = getattr(self, "_last_cells", 0) + getattr(
@@ -349,9 +355,11 @@ class TSPairwiseAlignment:
     def viz_template_switches(self) -> None:
         """Print the per-TSM plain-text view to stdout
         (python_bindings/src/lib.rs:45-50 parity)."""
-        raise NotImplementedError(
-            "the plain-text view needs the show/ package, which is not ported yet"
-        )
+        import sys
+
+        from .show.plain_text import show_template_switches
+
+        show_template_switches(sys.stdout, self.result)
 
 
 def align(
@@ -365,7 +373,7 @@ def align(
 ) -> TSPairwiseAlignment:
     """Module-level convenience (python/tsalign/__init__.py parity).
 
-    Keyword arguments matching Aligner settings (no_ts, strategy
+    Keyword arguments matching Aligner settings (engine, no_ts, strategy
     selectors, chunk, ...) configure the aligner, mirroring the reference
     binding's depythonized settings struct (python_bindings/src/lib.rs:66-91);
     the rest (range_, cost_limit, ...) go to the per-call align()."""
