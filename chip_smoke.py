@@ -92,7 +92,29 @@ Phases, each ending with a line of its wall time (phase_s):
      and `show -n` with a --no-ts record of the flankless pair; (e) `align
      --profile DIR` on the 60 bp fixture pair: the Chrome trace it writes
      names the kernels of csrc/sweep.cu and csrc/module_scan.cu.  One line a
-     step: wall, cost, launches, the kernels' device ms (CUDA events).
+     step: wall, cost, launches, the kernels' device ms (CUDA events);
+ 10. the routes of the rounds loop.  (a) The compact live-column route
+     against the chunked one on the card: at the flankless main pair's first
+     round after round 1 in which the host loop sends a kind compact, every
+     such kind's reentry field both ways (torch.equal), with each route's
+     launches and the share of its (entry row, column) problems dead at level
+     0; then at a 160 x 150 pair (chunk 16) the same, and kind_sel_chunks on
+     the card against its plain run on the CPU for a cross and a
+     same-sequence kind (equal_mod_inf: the card runs the skipping mode).
+     (b) Both main pairs through the facade's host loop (fused=False) on the
+     chunked route (the private switch engine._COMPACT_ROUTE off) and the
+     compact route in turns, chunked, compact, chunked, compact, from cold
+     memos: the records are equal but for their wall lines; each run's wall,
+     engine passes and rounds, module-scan launches, assembly calls, compact
+     launches, mean live columns and bucket, kernels' device ms.  (c) The
+     fused rounds loop: the flankless main pair through the facade's default
+     (the single-pair delegation) against (b)'s compact run (the records may
+     differ only in FUSED_MAY_DIFFER), then phase 7's flankless batch
+     (K-scaled, BatchedTSAligner with the fused and the host loop: costs,
+     rounds and alignments equal); at most two control reads a round of a
+     loop, none larger than the all-done flag and eight kinds' chunk
+     liveness; the peak device memory.  (d) The facade's default runs the
+     fused loop, with max_template_switches=1 or prune_range the host loop.
 Any failure raises, so the script exits nonzero before its last line.  The
 last lines are the kernels' JSON record, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -144,7 +166,7 @@ from tsalign_tpu_torch import _build
 from tsalign_tpu_torch.alignment import Alignment, TemplateSwitchEntrance, TemplateSwitchExit
 from tsalign_tpu_torch.alphabet import get_alphabet
 from tsalign_tpu_torch.config import TemplateSwitchConfig
-from tsalign_tpu_torch.costs import GapAffineCostTable
+from tsalign_tpu_torch.costs import INF, GapAffineCostTable
 from tsalign_tpu_torch.engine import TorchAligner, next_seeds
 from tsalign_tpu_torch.ops.common import (DEV_INF, DEV_INF_THRESH, dead_state_threshold,
                                           equal_mod_inf, sat_add)
@@ -1199,7 +1221,8 @@ def main_pair_chunks(eng, root):
         A_mod = torch.from_numpy(np.ascontiguousarray(A_np)).to(DEV)
         t = km.tables(DEV)
         C = km.chunk
-        later = [b for b in eng._chunk_bases(km, A_np, AS, best) if b > 0]
+        route = eng._route(km, A_np, AS, best)
+        later = [b for b in route[1] if b > 0] if route and route[0] == "chunked" else []
         if not later:  # no live chunk after column 0: take the middle one
             n_e = km.spec.n_anti + 1
             later = [min(e0, n_e - C) for e0 in range(C, n_e, C)]
@@ -1296,7 +1319,9 @@ def phase7_batch(flanked):
     eight pairs of `batch_pairs`, under the default configuration or the
     flanked default.  Every record must reprice to its cost, and the
     shortest and the longest pair must cost the same through the single-pair
-    port (timed in the same run).  Returns the launches of the batch."""
+    port (timed in the same run).  Returns the launches of the batch and the
+    batch itself (records, rounds, wall, the fused loop's control reads and
+    peak memory) for phase 10."""
     al = get_alphabet("dna-n")
     cfg = flanked_default(al) if flanked else TemplateSwitchConfig.default(al)
     pairs = batch_pairs()
@@ -1319,6 +1344,10 @@ def phase7_batch(flanked):
         l_eff = min(int(lw) if lw is not None else n, n)
         return cfg.can_rewind() and max(0, rounds[i] - 1) * l_eff >= K
 
+    from tsalign_tpu_torch.parallel import fused_rounds
+
+    fused_rounds.control_reads.clear()
+    torch.cuda.reset_peak_memory_stats()
     _build.launches.clear()
     _build.kernel_events = []
     torch.cuda.synchronize()
@@ -1329,6 +1358,8 @@ def phase7_batch(flanked):
     kernel_ms = _build.kernel_ms()
     _build.kernel_events = None
     counts = dict(_build.launches)
+    per_round, largest = control_reads_by_round()
+    peak = torch.cuda.max_memory_allocated()
     costs = []
     for (r, q), rec in zip(pairs, records):
         cost = rec.result.cost
@@ -1364,8 +1395,12 @@ def phase7_batch(flanked):
         redone_by_the_single_pair_engine=[i for i in range(len(pairs)) if redone(i)], wall_s=wall,
         wall_s_a_pair=wall / len(pairs), repriced=True, kernel_device_ms=kernel_ms,
         kernel_device_share=sum(kernel_ms.values()) / 1e3 / wall, launches=counts,
+        control_reads_per_round=per_round, largest_control_read=largest, peak_mem_bytes=peak,
         single_pair=singles)
-    return counts
+    return counts, dict(records=records, rounds=[rounds[i] for i in range(len(pairs))],
+                        wall_s=wall, kernel_device_ms=kernel_ms, launches=counts,
+                        control_reads_per_round=per_round, largest_control_read=largest,
+                        peak_mem_bytes=peak)
 
 
 def phase7_fixture():
@@ -1693,6 +1728,380 @@ def phase9(main_pair, flanked_pair, chain_cigar):
     return launches
 
 
+class RouteMeter:
+    """What one run through the rounds loop did: every engine pass (its
+    rounds and route log), the assembly calls, the launches (counts set to 0
+    on entry) and the kernels' device ms by CUDA events."""
+
+    def __enter__(self):
+        from tsalign_tpu_torch.ops import modules
+
+        self.engines, self.assembly_calls = [], 0
+        self._undo = []
+
+        def wrap(owner, attr, before):
+            inner = getattr(owner, attr)
+
+            def counted(*a, **kw):
+                out = inner(*a, **kw)
+                before(a, out)
+                return out
+
+            setattr(owner, attr, counted)
+            self._undo.append((owner, attr, inner))
+
+        wrap(TorchAligner, "align", lambda a, out: self.engines.append((a[0], out.rounds)))
+        wrap(modules, "assembly_torch",
+             lambda a, out: setattr(self, "assembly_calls", self.assembly_calls + 1))
+        _build.launches.clear()
+        _build.kernel_events = []
+        torch.cuda.synchronize()
+        self.t0 = time.monotonic()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.wall = time.monotonic() - self.t0
+        self.kernel_ms = _build.kernel_ms()
+        _build.kernel_events = None
+        self.launches = dict(_build.launches)
+        for owner, attr, inner in reversed(self._undo):
+            setattr(owner, attr, inner)
+        return False
+
+    def summary(self):
+        log = [e for eng, _ in self.engines for e in eng.route_log]
+        compact = [e for e in log if e["route"] == "compact"]
+        return dict(
+            wall_s=self.wall, engine_passes=len(self.engines),
+            rounds=[r for _, r in self.engines],
+            module_scan_launches={k: v for k, v in self.launches.items()
+                                  if k.startswith("module_scan")},
+            assembly_calls=self.assembly_calls, compact_launches=len(compact),
+            chunked_launches=sum(1 for e in log if e["route"] == "chunked"),
+            compact_mean_live_cols=(sum(len(e["e_live"]) for e in compact) / len(compact)
+                                    if compact else None),
+            compact_mean_Kb=sum(e["Kb"] for e in compact) / len(compact) if compact else None,
+            kernel_device_ms=self.kernel_ms, launches=self.launches)
+
+
+def cold_memos():
+    """Forget every content-keyed memo of the engines (kind tables,
+    same-sequence scans, remaining bounds, stacked sweep tables)."""
+    from tsalign_tpu_torch import engine
+    from tsalign_tpu_torch.parallel import batch_ts
+
+    for memo in (engine._KINDS_MEMO, engine._LB_MEMO, batch_ts._BATCH_BOUNDS_MEMO,
+                 batch_ts._BATCH_KINDS_MEMO, batch_ts._BATCH_ARRAYS_MEMO):
+        memo.clear()
+
+
+def compact_against_chunked(eng, A, kinds, best, device):
+    """Every kind that the engine's rule sends compact on the entry field A:
+    its reentry field by both routes (`_launch_compact` and the chunks that
+    cover its live columns), which must be equal; and their launch counts."""
+    from tsalign_tpu_torch import engine
+    from tsalign_tpu_torch.ops.common import full_inf
+    from tsalign_tpu_torch.ops.modules import fold_kind_cells, kind_all_chunks
+
+    AS = eng._entry_bound(A, best)
+    shape = (eng.n_r + 1, eng.n_q + 1)
+    R_compact, R_chunked, rows = full_inf(shape, device), full_inf(shape, device), []
+    for km in kinds:
+        spec = km.spec
+        A_mod = A if spec.pk == 0 else A.T
+        route = eng._route(km, A_mod, AS, best)
+        if route is None or route[0] != "compact":
+            continue
+        _, e_live, Kb = route
+        engine._COMPACT_ROUTE = False
+        try:
+            bases = eng._route(km, A_mod, AS, best)[1]
+        finally:
+            engine._COMPACT_ROUTE = True
+        A_dev = torch.from_numpy(np.ascontiguousarray(A_mod)).to(device)
+        PAD = max(0, -km.s_lo)
+        width = PAD + spec.n_anti + 1 + max(0, km.chunk - 1 + km.s_hi)
+        _build.launches.clear()
+        slab_c = eng._launch_compact(km, A_dev, e_live, Kb)
+        launches_c = sum(_build.launches.values())
+        _build.launches.clear()
+        (slab_k,) = kind_all_chunks([km], A_dev[None], np.asarray([bases]), PAD, width)
+        launches_k = sum(_build.launches.values())
+        fold = dict(PAD=PAD, n_anti=spec.n_anti, transpose=spec.pk == 1)
+        Rc = fold_kind_cells(full_inf(shape, device), slab_c, spec.n_anti_real, **fold)
+        Rk = fold_kind_cells(full_inf(shape, device), slab_k, spec.n_anti_real, **fold)
+        if not torch.equal(Rc, Rk):
+            raise AssertionError(f"routes: kind {(spec.pk, spec.sk, spec.dk)}: the compact "
+                                 "route's reentry field differs from the chunked route's")
+        R_compact = torch.minimum(R_compact, Rc)
+        R_chunked = torch.minimum(R_chunked, Rk)
+        # (entry row, column) problems whose entry value is infinite: dead at
+        # level 0 whatever the kind's tables
+        cols = torch.from_numpy(e_live).to(device)
+        dead_compact = float((A_dev.index_select(1, cols) >= DEV_INF_THRESH).float().mean())
+        covered = torch.cat([torch.arange(b, b + km.chunk) for b in bases if b >= 0]).to(device)
+        dead_chunked = float((A_dev.index_select(1, covered) >= DEV_INF_THRESH).float().mean())
+        rows.append(dict(kind=[spec.pk, spec.sk, spec.dk], live_cols=int(e_live.size), Kb=Kb,
+                         chunks=sum(1 for b in bases if b >= 0), launches_compact=launches_c,
+                         launches_chunked=launches_k, dead_at_level_0_compact=dead_compact,
+                         dead_at_level_0_chunked=dead_chunked))
+    if not torch.equal(R_compact, R_chunked):
+        raise AssertionError("routes: the folded reentry fields differ")
+    return rows
+
+
+def first_compact_round(step, eng, calls, device):
+    """Hold the two routes against each other (`compact_against_chunked`) at
+    the first reentry round after round 1 in which the engine `eng` sent a
+    kind compact; `calls` are its reentry calls (A, kinds, best) in order.
+    Returns that round's (A, kinds, best), None if no such round."""
+    rounds = sorted({e["round"] for e in eng.route_log if e["route"] == "compact"})
+    later = [k for k in rounds if k >= 2]
+    if not later:
+        say(10, step=step, compact_rounds=rounds, route_log=eng.route_log)
+        return None
+    k = later[0]
+    A, kinds, best = calls[k - 1]
+    rows = compact_against_chunked(eng, A, kinds, best, device)
+    say(10, step=step, n_r=eng.n_r, n_q=eng.n_q, chunk=eng.chunk, round=k,
+        compact_rounds=rounds, equal=True, kinds=rows,
+        routes_by_round=[[e["round"], e["kind"], e["route"], e.get("Kb"),
+                          len(e.get("e_live", ())), e.get("chunks")] for e in eng.route_log])
+    return A, kinds, best
+
+
+@contextlib.contextmanager
+def reentry_calls():
+    """Record every engine's reentry calls: {engine: [(A, kinds, best)]}."""
+    calls = collections.defaultdict(list)
+    inner = TorchAligner._reentry
+
+    def recording(eng, A, kinds, best=INF):
+        calls[eng].append((A.copy(), kinds, best))
+        return inner(eng, A, kinds, best=best)
+
+    TorchAligner._reentry = recording
+    try:
+        yield calls
+    finally:
+        TorchAligner._reentry = inner
+
+
+def phase10_compact_pipeline():
+    """(a), small pair: at a 160 x 150 pair with chunk 16 (where the rule
+    sends kinds compact early), the two routes' reentry fields on the card at
+    its first compact round after round 1, then `kind_sel_chunks` on the card
+    against its plain run on the CPU for a cross and a same-sequence kind
+    (the main pair's check runs inside (b))."""
+    from tsalign_tpu_torch.ops.modules import kind_sel_chunks
+
+    al = get_alphabet("dna-n")
+    ref, qry = planted_pair(np.random.default_rng(160), 160, 24, 3, True, q_len=150)
+    K = 512  # the K-scaled tie-break's K at 160 + 150
+    eng = TorchAligner(TemplateSwitchConfig.default(al).scaled_for_length_tiebreak(K),
+                       al.encode(ref), al.encode(qry), device=DEV, chunk=16,
+                       keep_fields=False, fused=False)
+    with reentry_calls() as calls:
+        eng.align()
+    picked = first_compact_round("a_small_pair", eng, calls[eng], torch.device(DEV))
+    if picked is None:
+        raise AssertionError("routes: no kind of the small pair went compact after round 1")
+    A, kinds, best = picked
+    AS = eng._entry_bound(A, best)
+    chosen = {}
+    for km in kinds:
+        A_mod = A if km.spec.pk == 0 else A.T
+        e_live = np.nonzero((AS if km.spec.pk == 0 else AS.T).min(axis=0) <= best)[0]
+        if e_live.size and km.same_seq not in chosen:
+            chosen[km.same_seq] = (km, A_mod, e_live)
+    for same, (km, A_mod, e_live) in sorted(chosen.items()):
+        Kb = km.chunk
+        while Kb < e_live.size:
+            Kb *= 2
+        e_sel = np.zeros((1, Kb), np.int64)
+        e_sel[0, : e_live.size] = e_live
+        PAD = max(0, -km.s_lo)
+        OUTW = PAD + km.spec.n_anti + 1 + max(0, km.s_hi)
+        A_t = torch.from_numpy(np.ascontiguousarray(A_mod))[None]
+        got = kind_sel_chunks([km], A_t.to(DEV), e_sel, PAD, OUTW)
+        want = kind_sel_chunks([km], A_t, e_sel, PAD, OUTW)
+        # the card's module scan runs its skipping mode: equal below 2^29
+        if not equal_mod_inf(got, want.to(DEV)):
+            raise AssertionError(f"routes: kind_sel_chunks on the card differs from the "
+                                 f"CPU's (same_seq={same})")
+        say(10, step="a_card_against_cpu", kind=[km.spec.pk, km.spec.sk, km.dk],
+            same_seq=same, live_cols=int(e_live.size), Kb=Kb, equal_mod_inf=True,
+            finite_cells=int((got < DEV_INF_THRESH).sum()))
+
+
+def phase10_host_routes(main_pair):
+    """(b) The host rounds loop on the flankless main pair through the
+    facade, the chunked route (the private switch off) and the compact route
+    in turns, chunked, compact, chunked, compact, each from cold memos: the
+    records must be equal but for their wall lines.  The flanked pair's A/B
+    is left out for the smoke's time.  In the first compact run, (a) at the
+    main pair: the two routes' reentry fields on the card at the first
+    engine pass's first compact round after round 1.  Returns the launches of
+    the last run of each route and the compact run's record."""
+    from tsalign_tpu_torch import engine
+
+    name, cfg, r, q = main_pair
+    launches, records = {}, []
+    for run, compact in enumerate((False, True, False, True)):
+        engine._COMPACT_ROUTE = compact
+        cold_memos()
+        try:
+            with reentry_calls() as calls, RouteMeter() as meter:
+                res = tsalign_tpu_torch.Aligner(costs=cfg, device=DEV, fused=False).align(
+                    r, q, reference_name=MAIN_NAMES[0], query_name=MAIN_NAMES[1])
+        finally:
+            engine._COMPACT_ROUTE = True
+        records.append(res.to_toml())
+        route = "compact" if compact else "chunked"
+        launches[f"routes_{route}"] = meter.launches
+        say(10, step="b_host_loop", pair=name, route=route, cost=res.stats()["cost"],
+            **meter.summary())
+        if run == 1:
+            eng = meter.engines[0][0]
+            first_compact_round("a_main_pair", eng, calls[eng], torch.device(DEV))
+    if len({tuple(record_lines(rec)) for rec in records}) != 1:
+        raise AssertionError(f"routes {name}: the records differ between the routes")
+    say(10, step="b_host_loop", pair=name, records_equal=True)
+    return launches, records[-1]
+
+
+# The record lines in which a run of the fused loop may differ from one of
+# the host loop: the wall lines, and opened_nodes, the DP cells counted, whose
+# formula for a fused run (``engine.TorchAligner._fused_delegate``, the JAX
+# package's) counts one sweep more than the host loop runs where the rounds
+# end by the no-sweep stop.
+FUSED_MAY_DIFFER = {"duration_seconds", "runtime", "opened_nodes"}
+
+
+def differing_keys(a: str, b: str) -> set:
+    lines_a, lines_b = a.splitlines(), b.splitlines()
+    if len(lines_a) != len(lines_b):
+        raise AssertionError("the records differ in their number of lines")
+    return {x.split("=")[0].strip() for x, y in zip(lines_a, lines_b) if x != y}
+
+
+def control_reads_by_round():
+    """{"loop:round": reads} of the fused loops since the list was cleared,
+    and the largest read's elements."""
+    from tsalign_tpu_torch.parallel import fused_rounds
+
+    per_round = collections.Counter(f"{loop}:{k}" for loop, k, _ in fused_rounds.control_reads)
+    return dict(per_round), max((n for *_, n in fused_rounds.control_reads), default=0)
+
+
+def check_control_reads(per_round, largest, n_pairs, n_max, chunk=64):
+    """At most two control reads a round, each at most the all-done flag and
+    eight kinds' per-pair chunk liveness: no field crossed to the host."""
+    if per_round and max(per_round.values()) > 2:
+        raise AssertionError(f"fused: more than two control reads in a round: {per_round}")
+    if largest > 1 + n_pairs * 8 * -(-(n_max + 1) // chunk):
+        raise AssertionError(f"fused: a control read of {largest} elements")
+
+
+def phase10_fused(main_pair, host_record, batch7):
+    """(c) The fused rounds loop against the host loop: the flankless main
+    pair through the facade's default (the single-pair delegation on the
+    card) against (b)'s compact host run; then phase 7's flankless batch,
+    which ran the fused loop (`align_pairs`' default on the card), against
+    the same batch through the host loop (`fused=False`): equal records
+    but for the wall lines, equal rounds.  At most two control reads a round
+    of a loop, none of them field-sized."""
+    from tsalign_tpu_torch.parallel import fused_rounds
+
+    launches = {}
+    name, cfg, r, q = main_pair
+    cold_memos()
+    fused_rounds.control_reads.clear()
+    torch.cuda.reset_peak_memory_stats()
+    with RouteMeter() as meter:
+        res = tsalign_tpu_torch.Aligner(costs=cfg, device=DEV).align(
+            r, q, reference_name=MAIN_NAMES[0], query_name=MAIN_NAMES[1])
+    loops = [eng.loop for eng, _ in meter.engines]
+    if "fused" not in loops:
+        raise AssertionError(f"fused: the facade's default ran the loops {loops}")
+    differ = differing_keys(res.to_toml(), host_record)
+    if not differ <= FUSED_MAY_DIFFER:
+        raise AssertionError(f"fused {name}: the record differs from the host loop's in {differ}")
+    per_round, largest = control_reads_by_round()
+    check_control_reads(per_round, largest, 1, max(len(r), len(q)))
+    launches["routes_fused"] = meter.launches
+    say(10, step="c_fused_single_pair", pair=name, loops=loops, cost=res.stats()["cost"],
+        record_differs_in=sorted(differ), control_reads_per_round=per_round,
+        largest_control_read=largest, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        **meter.summary())
+
+    check_control_reads(batch7["control_reads_per_round"], batch7["largest_control_read"],
+                        len(batch7["records"]), 512)
+    al = get_alphabet("dna-n")
+    rounds = {}
+
+    def on_batch(idx, bt):
+        for i, x in zip(idx, bt.last_results):
+            rounds[i] = x.rounds
+
+    cold_memos()
+    torch.cuda.reset_peak_memory_stats()
+    with RouteMeter() as meter:
+        records = align_pairs(TemplateSwitchConfig.default(al), batch_pairs(), device=DEV,
+                              on_batch=on_batch, fused=False)
+    host_rounds = [rounds[i] for i in range(len(records))]
+    equal = ([record_lines(x.to_toml()) for x in records]
+             == [record_lines(x.to_toml()) for x in batch7["records"]])
+    say(10, step="c_batch", pairs=len(records), costs=[x.result.cost for x in records],
+        rounds_host=host_rounds, rounds_fused=batch7["rounds"], records_equal=equal,
+        fused_wall_s=batch7["wall_s"], host_wall_s=meter.wall,
+        fused_kernel_device_ms=batch7["kernel_device_ms"],
+        host_kernel_device_ms=meter.kernel_ms,
+        fused_control_reads_per_round=batch7["control_reads_per_round"],
+        fused_largest_control_read=batch7["largest_control_read"],
+        fused_peak_mem_bytes=batch7["peak_mem_bytes"],
+        host_peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        fused_launches=batch7["launches"], host_launches=meter.launches,
+        host_assembly_calls=meter.assembly_calls)
+    if not equal or host_rounds != batch7["rounds"]:
+        raise AssertionError("fused batch: the records or rounds differ from the host loop's")
+    return launches
+
+
+def phase10_delegation():
+    """(d) The delegation's conditions on the card: the facade with
+    max_template_switches=1 and with prune_range runs the host loop, its
+    default the fused loop (a 160 x 150 pair)."""
+    al = get_alphabet("dna-n")
+    r, q = planted_pair(np.random.default_rng(160), 160, 24, 3, True, q_len=150)
+    cfg = TemplateSwitchConfig.default(al)
+    for what, kw, want in (("default", {}, "fused"),
+                           ("max_template_switches=1", dict(max_template_switches=1), "host"),
+                           ("prune_range", dict(prune_range=True), "host")):
+        with RouteMeter() as meter:
+            res = tsalign_tpu_torch.Aligner(costs=cfg, device=DEV).align(r, q, **kw)
+        loops = sorted({eng.loop for eng, _ in meter.engines})
+        routes = sorted({e["route"] for eng, _ in meter.engines for e in eng.route_log})
+        if loops != [want] or (want == "host") == ("fused" in routes):
+            raise AssertionError(f"delegation {what}: loops {loops}, routes {routes}")
+        say(10, step="d_delegation", case=what, loops=loops, routes=routes,
+            cost=res.stats()["cost"], wall_s=meter.wall)
+
+
+def phase10(r, q, batch7):
+    """The routes of the rounds loop on the card, (a)-(d); `batch7` is
+    phase 7's flankless batch (its fused loop's records, rounds and
+    counts).  Returns the launches of the last chunked, compact and fused
+    runs."""
+    main_pair = ("flankless", TemplateSwitchConfig.default(get_alphabet("dna-n")), r, q)
+    phase10_compact_pipeline()
+    launches, host_record = phase10_host_routes(main_pair)
+    launches.update(phase10_fused(main_pair, host_record, batch7))
+    phase10_delegation()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)")
@@ -1710,8 +2119,8 @@ def main():
     timings.update(phase6_shapes(fr, fq))
     say(6, phase_s=time.monotonic() - t0)
     t0 = time.monotonic()
-    batch_counts = phase7_batch(False)
-    flanked_batch_counts = phase7_batch(True)
+    batch_counts, batch7 = phase7_batch(False)
+    flanked_batch_counts, _ = phase7_batch(True)
     phase7_fixture()
     say(7, phase_s=time.monotonic() - t0)
     t0 = time.monotonic()
@@ -1722,6 +2131,9 @@ def main():
     t0 = time.monotonic()
     cli_counts = phase9((r, q, record), (fr, fq, flanked_record), chain_cigar)
     say(9, phase_s=time.monotonic() - t0)
+    t0 = time.monotonic()
+    route_counts = phase10(r, q, batch7)
+    say(10, phase_s=time.monotonic() - t0)
     kernels = []
     for name, meta in KERNELS.items():
         if max_err[name] is None or name not in timings:
@@ -1731,7 +2143,8 @@ def main():
                    "batch": batch_counts.get(name, 0),
                    "flanked_batch": flanked_batch_counts.get(name, 0),
                    "chain": chain_counts.get(name, 0),
-                   **{f"cli_{k}": v.get(name, 0) for k, v in cli_counts.items()}}
+                   **{f"cli_{k}": v.get(name, 0) for k, v in cli_counts.items()},
+                   **{k: v.get(name, 0) for k, v in route_counts.items()}}
         # the launches of the newest main path that runs the kernel: the
         # batches for the variants they launch, the single pairs for the rest
         # (a batch's redo pass launches those too)

@@ -30,7 +30,8 @@ power limit.
     pair's shapes (NB 1001, W 1100, L 1000) and at the widest module
     (W 2048), held against the earlier kernel and timed in turns with it.
   * With `--breakdown`: aligns both main pairs of chip_smoke.py (the
-    flankless and the flanked 500 x 420 pair) twice each, once as they are
+    flankless and the flanked 500 x 420 pair) on the host rounds loop
+    (`fused=False`) twice each, once as they are
     and once with a torch.cuda.synchronize() around every layer, and prints
     each layer's exclusive seconds and calls.
 """
@@ -239,10 +240,13 @@ def align_main(flanked: bool):
     _build.launches.clear()
     torch.cuda.synchronize()
     t0 = time.monotonic()
+    # the host rounds loop, whose layers the breakdown wraps (the card's
+    # default hands the pair to the fused loop of the batched engine)
     if flanked:
-        res = tsalign_tpu_torch.Aligner(costs=cs.flanked_default(al), device=cs.DEV).align(r, q)
+        res = tsalign_tpu_torch.Aligner(costs=cs.flanked_default(al), device=cs.DEV,
+                                        fused=False).align(r, q)
     else:
-        res = tsalign_tpu_torch.align(r, q, device=cs.DEV)
+        res = tsalign_tpu_torch.align(r, q, device=cs.DEV, fused=False)
     torch.cuda.synchronize()
     return time.monotonic() - t0, res.stats()["cost"], dict(_build.launches)
 
@@ -256,6 +260,8 @@ def breakdown():
         for owner, attr, label in (
                 (scan_mod, "module_scan", "module-scan kernel (cross kinds)"),
                 (modules, "assembly_torch", "assembly (plain torch)"),
+                (modules, "kind_sel_chunks", "compact route glue (gathers, fold)"),
+                (engine, "kind_sel_chunks", "compact route glue (gathers, fold)"),
                 (modules.KindModule, "same_module", "same-sequence module scans"),
                 (modules, "fold_kind_cells", "fold"),
                 (engine, "fold_kind_cells", "fold"),
@@ -265,7 +271,7 @@ def breakdown():
                 (TorchAligner, "_can_improve_cells", "_can_improve_cells (host)"),
                 (TorchAligner, "_pruned_entry_cells", "_pruned_entry_cells (host)"),
                 (TorchAligner, "_build_kinds", "kind tables (host)"),
-                (TorchAligner, "_chunk_bases", "chunk bases (host)"),
+                (TorchAligner, "_route", "route and chunk bases (host)"),
                 (TorchAligner, "_reentry", "reentry glue (seeds, slabs, copies)"),
                 (TorchAligner, "align", "rounds loop glue"),
                 (engine, "align_with_traceback", "traceback (host)")):

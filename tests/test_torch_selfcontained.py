@@ -73,6 +73,7 @@ def test_port_sources_are_found():
             "tsalign_tpu_torch/numpy_engine.py", "tsalign_tpu_torch/oracle.py",
             "tsalign_tpu_torch/parallel/__init__.py",
             "tsalign_tpu_torch/parallel/batch_ts.py",
+            "tsalign_tpu_torch/parallel/fused_rounds.py",
             "scripts/torch_port_chain_probe.py"} | {
                 f"tsalign_tpu_torch/chain/{m}.py"
                 for m in ("__init__", "plan", "anchors", "native", "chain", "driver")} | {
@@ -101,6 +102,30 @@ def test_batched_engine_runs_with_both_packages_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert all(float(c) >= 0 for c in out.stdout.split())
+
+
+def test_fused_rounds_loop_runs_with_both_packages_blocked():
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['tsalign_tpu'] = None\n"
+        "from tsalign_tpu_torch.alphabet import get_alphabet\n"
+        "from tsalign_tpu_torch.config import TemplateSwitchConfig\n"
+        "from tsalign_tpu_torch.engine import TorchAligner\n"
+        "from tsalign_tpu_torch.parallel import fused_rounds\n"
+        "al = get_alphabet('dna-n')\n"
+        "cfg = TemplateSwitchConfig.default(al)\n"
+        "eng = TorchAligner(cfg, al.encode('ACGTTGCAAGCTTGACCATGGCA'), "
+        "al.encode('ACGTTGCATTGCAAGTTGACCATGGCA'), device='cpu', fused=True)\n"
+        "cost, aln = eng.align_with_traceback()\n"
+        "assert eng.loop == 'fused' and fused_rounds.control_reads\n"
+        "assert not any(m.split('.')[0] in ('jax', 'tsalign_tpu') for m, v in "
+        "sys.modules.items() if v is not None)\n"
+        "print(cost)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[0]) >= 0
 
 
 def test_chained_mode_runs_with_both_packages_blocked():

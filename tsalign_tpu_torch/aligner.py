@@ -29,7 +29,9 @@ or ``"numpy"``; no value picks the engine by sequence length, so no pair
 leaves the device unless the caller asks.  Under ``"device"``, `device` is
 a required setting and ``_run_engine_raw`` runs ``engine.TorchAligner`` on
 it whatever the sequence length and, on an ``OverflowError`` from the int32
-algebra, the exact int64 numpy engine (``numpy_engine.DenseAligner``).
+algebra, the exact int64 numpy engine (``numpy_engine.DenseAligner``).  The
+`fused` setting goes to ``TorchAligner``: its rounds loop, fused (True) or on
+the host (False), None by the device.
 Under ``"numpy"`` it runs that numpy engine alone.
 """
 
@@ -71,6 +73,7 @@ class Aligner:
     engine: str = "device"  # device | numpy
     chunk: int = 64
     device: Optional[str] = None  # required by the device engine: "cuda", "cpu", ...
+    fused: Optional[bool] = None  # the rounds loop: fused (True), host (False), None by device
 
     def __post_init__(self):
         if self.engine not in ("device", "numpy"):
@@ -190,7 +193,8 @@ class Aligner:
                 # The per-round fields stay on the device; the traceback
                 # fetches row blocks on demand (fields.py).
                 eng = TorchAligner(
-                    cfg, ref_arr, qry_arr, device=self.device, chunk=self.chunk, **kw
+                    cfg, ref_arr, qry_arr, device=self.device, chunk=self.chunk,
+                    fused=self.fused, **kw
                 )
                 out = eng.align_with_traceback()
                 self._last_cells = getattr(self, "_last_cells", 0) + eng.cells_swept

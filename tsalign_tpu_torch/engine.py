@@ -6,15 +6,26 @@ F = L + R + 1 flank layers, then rounds of per-kind reentry (module scan,
 assembly, fold) and re-sweeps from the reentry seeds (which land in the
 bottom flank layer), with the same exact stops: the k * delta bound, the TSLB improvement
 test, the no-sweep stop on an unchanged reentry field, and the pruned-field
-fixpoint.  Reentry runs on the chunked route: the live chunks come from the
-same A + S liveness test as the JAX package, and where the JAX loop would take
-its compact live-column route the port launches the chunks covering those
-columns.  Per-round fields stay on the device; the traceback reads them
-through ``fields.py`` views.
+fixpoint.  On a CUDA device `align` hands the plain single pair to a
+one-pair ``parallel.batch_ts.BatchedTSAligner``, whose fused rounds loop keeps
+the stop algebra on the device (`_fused_delegate`, ``jax_engine.py:696-756``);
+the host loop below runs on the CPU, for the other cases and as the fallback
+of a fused loop that reaches its round cap.  In the host loop, reentry picks
+its route per kind and round by the JAX loop's rule
+(``jax_engine.py:501-557``): once a target cost is known, the live entry
+columns are those whose A + S reaches the incumbent somewhere, and when the
+smallest power-of-two multiple of the chunk that holds them is narrower than
+the chunks that cover them, the kind takes the compact live-column route
+(`_launch_compact`, ``ops.modules.kind_sel_chunks``); otherwise the chunked
+route launches the live chunks (``ops.modules.kind_all_chunks``).  The route
+changes which columns launch, never a value.  Each kind's route of each round
+is appended to ``TorchAligner.route_log``.  Per-round fields stay on the
+device; the traceback reads them through ``fields.py`` views.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -34,7 +45,7 @@ from .ops.common import (
     full_inf,
     validate_magnitudes,
 )
-from .ops.modules import KindModule, fold_kind_cells, kind_all_chunks
+from .ops.modules import KindModule, fold_kind_cells, kind_all_chunks, kind_sel_chunks
 from .ops.primary import PrimarySweep
 from .ops.primary_sweep import GAP_NONE
 from .ops.tsm_modules import make_kind_spec, real_seq_length
@@ -42,6 +53,14 @@ from .chain.plan import config_digest
 from .traceback import TracebackEngine
 
 MAX_ROUNDS = 32
+# The fused delegation's round cap: a pair not done by then runs the host loop.
+FUSED_MAX_ROUNDS = 16
+
+logger = logging.getLogger(__name__)
+
+# The compact live-column route, on (True) or off.  Private: the smoke's
+# A/B of the two routes and the tests switch it; no caller needs to.
+_COMPACT_ROUTE = True
 
 # Content-keyed memos for the remaining-cost bound and the kind modules.
 _LB_MEMO: dict = {}
@@ -95,14 +114,17 @@ class TorchAligner:
         allow_secondary_deletions: bool = True,
         keep_fields="device",
         use_lower_bounds: bool = True,
+        fused: Optional[bool] = None,
     ):
         """`keep_fields`: the per-round fields an `align` keeps for the
         traceback: "device" keeps ``fields.py`` views of the device tensors,
         True host int64 arrays, False none (a cost-only run).
         `use_lower_bounds`: False skips the remaining-cost bound (its value
         iteration on the host), which only prunes; the cost is exact either
-        way."""
+        way.  `fused`: whether `align` may hand the pair to the fused rounds
+        loop (`_fused_delegate`); None: on a CUDA device and not on the CPU."""
         self.device = torch.device(device)
+        self.fused = self.device.type == "cuda" if fused is None else bool(fused)
         self.keep_fields = keep_fields
         self.use_lower_bounds = use_lower_bounds
         self.config = config
@@ -124,6 +146,13 @@ class TorchAligner:
         self.allow_sdel = allow_secondary_deletions
         self.chunk = chunk
         self.cells_swept = 0
+        # One entry a kind and reentry round: {"round", "kind": (pk, sk, dk),
+        # "route": "compact" or "chunked", and "Kb" with "e_live" (the live
+        # entry columns) or "chunks" (the chunks launched)}; the fused loop's
+        # launches as "fused".  `loop`: the rounds loop `align` ran.
+        self.route_log: List[dict] = []
+        self.loop = None
+        self._reentries = 0
         self._validate()
         if prune_range:
             self._sweep_range = self.range
@@ -310,9 +339,11 @@ class TorchAligner:
         _KINDS_MEMO[key] = kinds
         return kinds
 
-    def _chunk_bases(self, km: KindModule, A_mod, AS, best: int) -> List[int]:
-        """Chunk bases of one kind, -1 for a chunk that cannot matter
-        (``JaxAligner._reentry``'s liveness tests, ``jax_engine.py:506-557``)."""
+    def _route(self, km: KindModule, A_mod, AS, best: int):
+        """The route of one kind (``JaxAligner._reentry``'s liveness tests,
+        ``jax_engine.py:501-557``): ("compact", e_live, Kb) for the compact
+        live-column route, ("chunked", bases) with -1 for a chunk that
+        cannot matter, or None when nothing of the kind is live."""
         spec = km.spec
         C = km.chunk
         n_e = spec.n_anti + 1
@@ -320,21 +351,30 @@ class TorchAligner:
         if AS is not None:
             AS_mod = AS if spec.pk == 0 else AS.T
             e_live = np.nonzero(AS_mod.min(axis=0) <= best)[0]
+            if e_live.size == 0:
+                return None
+            Kb = C
+            while Kb < e_live.size:
+                Kb *= 2
             live = {min(int(e) // C * C, max(n_e - C, 0)) for e in e_live}
+            if _COMPACT_ROUTE and Kb < len(live) * C:
+                return "compact", e_live, Kb
             bases = []
             for e0 in starts:
                 eb = min(e0, n_e - C) if n_e >= C else 0
                 bases.append(eb if (e0 // C * C) in live or eb in live else -1)
-            return bases
-        slack = self.config.secondary_length_bonus * (self.n_r + self.n_q)
-        thresh = min(best + slack, DEV_INF)
-        kind_min = max(spec.base, max(0, min_tsm_cost_bound(self.config)))
-        bases = []
-        for e0 in starts:
-            eb = min(e0, n_e - C) if n_e >= C else 0
-            a_min = int(A_mod[:, eb : eb + C].min()) if A_mod.size else DEV_INF
-            bases.append(eb if a_min + kind_min <= thresh else -1)
-        return bases
+        else:
+            slack = self.config.secondary_length_bonus * (self.n_r + self.n_q)
+            thresh = min(best + slack, DEV_INF)
+            kind_min = max(spec.base, max(0, min_tsm_cost_bound(self.config)))
+            bases = []
+            for e0 in starts:
+                eb = min(e0, n_e - C) if n_e >= C else 0
+                a_min = int(A_mod[:, eb : eb + C].min()) if A_mod.size else DEV_INF
+                bases.append(eb if a_min + kind_min <= thresh else -1)
+        if all(b < 0 for b in bases):
+            return None
+        return "chunked", bases
 
     def _entry_bound(self, A_cells: np.ndarray, best: int) -> Optional[np.ndarray]:
         """Entry cost plus the remaining bound of each entry cell (the
@@ -350,25 +390,48 @@ class TorchAligner:
         a device tensor (n_r+1, n_q+1)."""
         AS = self._entry_bound(A_cells, best)
         self.cells_swept += len(kinds) * (self.n_r + 1) * (self.n_q + 1)
+        self._reentries += 1
         A_dev = {}
         R = full_inf((self.n_r + 1, self.n_q + 1), self.device)
         for km in kinds:
             spec = km.spec
             A_mod = A_cells if spec.pk == 0 else A_cells.T
-            bases = self._chunk_bases(km, A_mod, AS, best)
-            if all(b < 0 for b in bases):
+            route = self._route(km, A_mod, AS, best)
+            if route is None:
                 continue
             if spec.pk not in A_dev:
                 A_dev[spec.pk] = torch.from_numpy(np.ascontiguousarray(A_mod)).to(self.device)
             PAD = max(0, -km.s_lo)
-            width = PAD + spec.n_anti + 1 + max(0, km.chunk - 1 + km.s_hi)
-            (Rk_pad,) = kind_all_chunks([km], A_dev[spec.pk][None], np.asarray([bases]),
-                                        PAD, width)
+            log = {"round": self._reentries, "kind": (spec.pk, spec.sk, spec.dk),
+                   "route": route[0]}
+            if route[0] == "compact":
+                _, e_live, Kb = route
+                Rk_pad = self._launch_compact(km, A_dev[spec.pk], e_live, Kb)
+                log.update(Kb=Kb, e_live=tuple(int(e) for e in e_live))
+            else:
+                bases = route[1]
+                width = PAD + spec.n_anti + 1 + max(0, km.chunk - 1 + km.s_hi)
+                (Rk_pad,) = kind_all_chunks([km], A_dev[spec.pk][None], np.asarray([bases]),
+                                            PAD, width)
+                log.update(chunks=sum(1 for b in bases if b >= 0))
+            self.route_log.append(log)
             R = fold_kind_cells(
                 R, Rk_pad, spec.n_anti_real, PAD=PAD, n_anti=spec.n_anti,
                 transpose=spec.pk == 1,
             )
         return R
+
+    def _launch_compact(self, km: KindModule, A_dev, e_live, Kb: int):
+        """The compact live-column route of one kind
+        (``JaxAligner._launch_compact``): the live entry columns in a Kb
+        bucket, sentinel slots 0, through ``kind_sel_chunks``; returns the
+        kind's (n_p+1, OUTW) slab, already folded at j2 = e + s."""
+        spec = km.spec
+        e_sel = np.zeros(Kb, np.int64)
+        e_sel[: e_live.size] = e_live
+        PAD = max(0, -km.s_lo)
+        OUTW = PAD + spec.n_anti + 1 + max(0, km.s_hi)
+        return kind_sel_chunks([km], A_dev[None], e_sel[None], PAD, OUTW)[0]
 
     def _sweep_summary(self, seeds: torch.Tensor, climb: bool):
         """Sweep from device seeds, left-flank climbs allowed when `climb`;
@@ -379,7 +442,54 @@ class TorchAligner:
         t = int(tv.min())
         return E.cpu().numpy(), (INF if t >= DEV_INF // 2 else t), M
 
+    def _fused_delegate(self) -> Optional[EngineResult]:
+        """The plain single pair through the fused rounds loop of a one-pair
+        ``BatchedTSAligner`` (``JaxAligner._fused_delegate``): only with no
+        `max_template_switches`, no `prune_range`, both primaries and
+        secondary deletions, as the batch models it.  None when it does not
+        apply, or when the pair is not done within FUSED_MAX_ROUNDS rounds
+        (the host loop has no such cap); every other exception propagates."""
+        if (
+            not self.fused
+            or self.max_ts is not None
+            or self.prune_range
+            or self.allowed_primaries != (0, 1)
+            or not self.allow_sdel
+        ):
+            return None
+        from .parallel.batch_ts import BatchedTSAligner, NotConvergedError
+
+        bt = BatchedTSAligner(
+            self.config,
+            [(self.ref, self.qry)],
+            ranges=[self.range],
+            chunk=self.chunk,
+            keep_fields=self.keep_fields,
+            max_rounds=min(MAX_ROUNDS, FUSED_MAX_ROUNDS),
+            use_lower_bounds=self.use_lower_bounds,
+            bucket=False,
+            device=self.device,
+            fused=True,
+        )
+        try:
+            res = bt.align()[0]
+        except NotConvergedError as e:
+            logger.warning("single-pair fused delegation: %s; host loop", e)
+            return None
+        self._last_budget = bt.sdel_budget
+        self.route_log = bt.route_log
+        F = self.config.left_flank_length + self.config.right_flank_length + 1
+        area = (self.n_r + 1) * (self.n_q + 1)
+        n_kinds = len(bt.kind_sets[0]) if bt.kind_sets else 0
+        self.cells_swept += res.rounds * (F * 3 * area) + max(0, res.rounds - 1) * n_kinds * area
+        return res
+
     def align(self) -> EngineResult:
+        fused = self._fused_delegate()
+        if fused is not None:
+            self.loop = "fused"
+            return fused
+        self.loop = "host"
         res = EngineResult(cost=INF, rounds=0)
 
         def keep(M, E):

@@ -117,6 +117,15 @@ def shift_last(x: torch.Tensor, k: int, fwd: bool) -> torch.Tensor:
     return y
 
 
+def device_key(device) -> str:
+    """The one name of a device for the per-device caches: "cuda" and
+    "cuda:0" (the current card) name the same card."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return str(d)
+
+
 def check_extension(name: str, ext: torch.Tensor) -> None:
     """Raise unless every chain extension cost in `ext` is >= 0 (one host
     wait on a device tensor)."""
@@ -164,15 +173,23 @@ SERIAL_CHAINS = 512
 def _minplus_serial(cand, ext, dim: int, reverse: bool) -> torch.Tensor:
     """`minplus_scan` as the serial recurrence, one step a position (from
     the last position down when `reverse`)."""
-    c = cand.movedim(dim, 0).to(torch.int64, memory_format=torch.contiguous_format)
-    e = ext.movedim(dim, 0).to(torch.int64, memory_format=torch.contiguous_format)
+    c = cand.movedim(dim, 0).to(torch.int64, memory_format=torch.contiguous_format).numpy()
+    e = ext.movedim(dim, 0).to(torch.int64, memory_format=torch.contiguous_format).numpy()
     n = c.shape[0]
     order = range(n - 1, -1, -1) if reverse else range(n)
-    out = torch.empty_like(c)
+    # numpy in place: a step is three small ops, each cheaper than a torch op
+    out = np.empty_like(c)
+    step = np.empty_like(c[0])
     d = None
     for t in order:
-        d = out[t] = c[t] if d is None else torch.minimum(c[t], (d + e[t]).clamp_max_(DEV_INF))
-    return out.movedim(0, dim).to(I32, memory_format=torch.contiguous_format)
+        if d is None:
+            out[t] = c[t]
+        else:
+            np.add(d, e[t], out=step)
+            np.minimum(step, DEV_INF, out=step)
+            np.minimum(c[t], step, out=out[t])
+        d = out[t]
+    return torch.from_numpy(out).movedim(0, dim).to(I32, memory_format=torch.contiguous_format)
 
 
 def cummin(x: torch.Tensor, dim: int = -1, reverse: bool = False) -> torch.Tensor:

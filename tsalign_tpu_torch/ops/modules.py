@@ -10,9 +10,15 @@ Counterpart of ``tsalign_tpu/ops/jax_modules.py``.  Per kind (pk, sk, dk):
      ``_assembly``): shear D3[p2 - l, e, l] + length(l), per finite ldiff
      segment a sliding-window min over s with the anti-gap walk bands and
      kill rows, the ldiff = 0 term, anti(s), then the diagonal min-fold to
-     R_pad[p, c + s];
-  3. the chunk driver (`kind_all_chunks`, one pair or a batch of pairs) and
-     the fold into the (ref, query) reentry field (`fold_kind_cells`).
+     R_pad[p, c + s] (with `separate_cols`, the (n_p+1, C, S) slab of
+     each entry column instead);
+  3. the two chunk drivers, each over one pair or a batch of pairs: the
+     chunked route (`kind_all_chunks`, ``_kind_all_chunks``: every live
+     chunk of the entry axis) and the compact live-column route
+     (`kind_sel_chunks`, ``_kind_sel_chunks(gather=True)``: the live entry
+     columns gathered into a power-of-two bucket, each column's slab
+     min-folded at its own j2 = e + s); then the fold into the (ref, query)
+     reentry field (`fold_kind_cells`).
 
 The TPU workarounds of the JAX package (VMEM and scan-budget chunk clamps,
 skew-reshape shears, gather-free masked shifts) are not ported: the chunk
@@ -36,6 +42,7 @@ from .common import (
     I32,
     check_extension,
     dead_state_threshold,
+    device_key,
     full_inf,
     minplus_scan,
     sat_add,
@@ -250,7 +257,7 @@ class KindModule:
     def tables(self, device) -> dict:
         """The kind's tensors on `device` (built once per device), plus the
         per-level insertion costs io_l/ie_l of the module scan."""
-        key = str(device)
+        key = device_key(device)
         if key not in self._tables:
             t = tables_from_numpy(self.host_tables(), device)
             pc = t["pchar_l"].long()
@@ -265,7 +272,7 @@ class KindModule:
         on the card as the kernel's diagonal mode."""
         from .module_scan import module_scan_diag
 
-        key = str(device)
+        key = device_key(device)
         if key not in self._b_pre:
             t = self.tables(device)
             self._b_pre[key] = module_scan_diag(
@@ -378,13 +385,15 @@ def _positive_padded(km: KindModule, plan: SegPlan, D3pad):
     return torch.where(rows > ah - plan.a, DEV_INF, val)
 
 
-def assembly_torch(B, A_chunk, km: KindModule, t: dict):
+def assembly_torch(B, A_chunk, km: KindModule, t: dict, separate_cols: bool = False):
     """Reentry assembly of one chunk (static-plan branch of ``_assembly``;
     a poison-padded problem's positive segments take `_positive_padded`).
 
     B (L+1, n_p+1, C) for cross kinds or (L+1, n_p+1) for same-sequence
     kinds; A_chunk (n_p+1, C).  Returns R_pad (n_p+1, C + S - 1) for the
-    columns j2 = e0 + s_lo ... e0 + C - 1 + s_hi."""
+    columns j2 = e0 + s_lo ... e0 + C - 1 + s_hi; with `separate_cols`, the
+    slab U (n_p+1, C, S) before the diagonal min-fold, U[p, c, s] landing at
+    j2 = e_c + s_lo + s (``_assembly``'s compact-column branch)."""
     L, n_p, S = km.L, km.n_p, km.S
     C = A_chunk.shape[1]
     dev = A_chunk.device
@@ -426,6 +435,8 @@ def assembly_torch(B, A_chunk, km: KindModule, t: dict):
     v0 = D3pad[:, :, km.OFF + km.s_lo : km.OFF + km.s_lo + S]
     U = torch.minimum(U, sat_add(v0, km.ldiff0))
     U = sat_add(U, t["anti_vec"][None, None, :])
+    if separate_cols:
+        return U
 
     # diagonal min-fold R_pad[p, c + s] = min_c U[p, c, s]
     col = (torch.arange(C, device=dev)[:, None] + torch.arange(S, device=dev)[None, :])
@@ -433,6 +444,43 @@ def assembly_torch(B, A_chunk, km: KindModule, t: dict):
     return R_pad.scatter_reduce(
         1, col.reshape(1, -1).expand(n_p + 1, -1), U.reshape(n_p + 1, -1),
         reduce="amin", include_self=True,
+    )
+
+
+def _kind_levels(kms, ts):
+    """The per-level tables of a cross kind stacked over the pairs, and the
+    skipping mode's threshold for all of them (None, 0 for a same-sequence
+    kind, whose module is the cached diagonal-mode scan)."""
+    if kms[0].same_seq:
+        return None, 0
+    names = ("pchar_l", "pmask_l", "io_l", "ie_l")
+    levels = {n: torch.stack([t[n] for t in ts]) for n in names}
+    skips = [km.skip_from for km in kms]
+    # each pair's threshold is sound for it, and so is any larger one
+    return levels, 0 if 0 in skips else max(skips)
+
+
+def _chunk_modules(kms, tabs, live, A_chunks, sl: slice, levels, skip_from):
+    """Module exit minima B of one chunk for the pairs `live` (their rows
+    on the kernel's pair axis): A_chunks[z] is pair live[z]'s (n_p+1, C)
+    entry columns, tabs[i] pair i's per-entry tables, whose columns `sl`
+    belong to those entry columns."""
+    from .module_scan import module_scan
+
+    km0 = kms[0]
+    dev = A_chunks[0].device
+    if km0.same_seq:
+        return [kms[i].same_module(dev) for i in live]
+    idx = torch.tensor(live, device=dev)
+    seedT = torch.stack([sat_add(A_chunks[z][:, :, None], tabs[i]["seed"][sl][None])
+                         for z, i in enumerate(live)])
+    return module_scan(
+        seedT,
+        torch.stack([tabs[i]["lut"][:, sl] for i in live]),
+        torch.stack([tabs[i]["sdo"][sl] for i in live]),
+        torch.stack([tabs[i]["sde"][sl] for i in live]),
+        *(levels[n].index_select(0, idx) for n in ("pchar_l", "pmask_l", "io_l", "ie_l")),
+        fwd=km0.dk == 0, allow_sdel=km0.allow_sdel, skip_from=skip_from,
     )
 
 
@@ -446,40 +494,20 @@ def kind_all_chunks(kms, A_b, eb_b, PAD: int, width: int):
     orientation, eb_b (B, chunks) the chunk bases, -1 for a chunk that is
     skipped.  Returns each pair's (n_p+1, width) slab, None where no chunk is
     live."""
-    from .module_scan import module_scan
-
     km0 = kms[0]
     dev = A_b.device
     C = km0.chunk
     ts = [km.tables(dev) for km in kms]
     slabs = [None] * len(kms)
-    levels = None
-    if not km0.same_seq:
-        names = ("pchar_l", "pmask_l", "io_l", "ie_l")
-        levels = {n: torch.stack([t[n] for t in ts]) for n in names}
-        skips = [km.skip_from for km in kms]
-        # each pair's threshold is sound for it, and so is any larger one
-        skip_from = 0 if 0 in skips else max(skips)
+    levels, skip_from = _kind_levels(kms, ts)
     for ci in range(eb_b.shape[1]):
         live = [i for i in range(len(kms)) if eb_b[i, ci] >= 0]
         if not live:
             continue
         e_base = int(eb_b[live[0], ci])
         sl = slice(e_base, e_base + C)
-        if km0.same_seq:
-            Bs = [kms[i].same_module(dev) for i in live]
-        else:
-            idx = torch.tensor(live, device=dev)
-            seedT = torch.stack([sat_add(A_b[i, :, sl][:, :, None], ts[i]["seed"][sl][None])
-                                 for i in live])
-            Bs = module_scan(
-                seedT,
-                torch.stack([ts[i]["lut"][:, sl] for i in live]),
-                torch.stack([ts[i]["sdo"][sl] for i in live]),
-                torch.stack([ts[i]["sde"][sl] for i in live]),
-                *(levels[n].index_select(0, idx) for n in ("pchar_l", "pmask_l", "io_l", "ie_l")),
-                fwd=km0.dk == 0, allow_sdel=km0.allow_sdel, skip_from=skip_from,
-            )
+        Bs = _chunk_modules(kms, ts, live, [A_b[i, :, sl] for i in live], sl, levels,
+                            skip_from)
         for z, i in enumerate(live):
             R_pad = assembly_torch(Bs[z], A_b[i, :, sl], kms[i], ts[i])
             if slabs[i] is None:
@@ -487,6 +515,56 @@ def kind_all_chunks(kms, A_b, eb_b, PAD: int, width: int):
             cols = slice(PAD + e_base + km0.s_lo, PAD + e_base + km0.s_lo + R_pad.shape[1])
             slabs[i][:, cols] = torch.minimum(slabs[i][:, cols], R_pad)
     return slabs
+
+
+def kind_sel_chunks(kms, A_b, e_sel_b, PAD: int, OUTW: int, n_live=None):
+    """The compact live-column route of one kind over one pair or a batch of
+    pairs (``_kind_sel_chunks(..., gather=True)``, the batch's
+    ``_kind_sel_map_jit``).  `kms` are the pairs' modules of the kind, A_b
+    (B, n_p+1, n_e) their entry fields in the kind's orientation, e_sel_b
+    (B, Kb) each pair's live entry columns, padded with column 0 (a sentinel
+    slot re-gathers column 0: a duplicate folded at its own place, or
+    infinite where column 0 is pruned, exact either way under a min).
+
+    Each pair's live columns of the entry field and of the kind's per-entry
+    tables are gathered by index; the compact axis runs in chunks of C at
+    the bases min(i C, Kb - C), each one module-scan launch over the pairs
+    (the kernel's pair axis) and each pair's assembly with separate
+    columns, whose column c min-folds its s-slab at PAD + e_c + s_lo + s.
+    `n_live` (B,), when given, holds each pair's count of live columns: a
+    chunk wholly of sentinel slots is not run for that pair.  Returns the
+    (B, n_p+1, OUTW) folded slabs, OUTW = PAD + n_anti + 1 + max(0, s_hi)."""
+    km0 = kms[0]
+    dev = A_b.device
+    C, S = km0.chunk, km0.S
+    n_rows = km0.spec.n_p + 1
+    e_sel = torch.as_tensor(np.asarray(e_sel_b), dtype=torch.long).to(dev)
+    Kb = e_sel.shape[1]
+    ts = [km.tables(dev) for km in kms]
+    levels, skip_from = _kind_levels(kms, ts)
+    A_sel = [A_b[i].index_select(1, e_sel[i]) for i in range(len(kms))]
+    if km0.same_seq:
+        tabs = ts
+    else:
+        tabs = [{"seed": t["seed"].index_select(0, e), "lut": t["lut"].index_select(1, e),
+                 "sdo": t["sdo"].index_select(0, e), "sde": t["sde"].index_select(0, e)}
+                for t, e in zip(ts, e_sel)]
+    out = full_inf((len(kms), n_rows, OUTW), dev)
+    s_off = torch.arange(S, device=dev)[None, :] + (PAD + km0.s_lo)
+    for e0 in range(0, Kb, C):
+        eb = min(e0, Kb - C) if Kb >= C else 0
+        live = [i for i in range(len(kms)) if n_live is None or eb < n_live[i]]
+        if not live:
+            continue
+        sl = slice(eb, eb + C)
+        Bs = _chunk_modules(kms, tabs, live, [A_sel[i][:, sl] for i in live], sl, levels,
+                            skip_from)
+        for z, i in enumerate(live):
+            U = assembly_torch(Bs[z], A_sel[i][:, sl], kms[i], ts[i], separate_cols=True)
+            pos = (e_sel[i, sl][:, None] + s_off).reshape(1, -1).expand(n_rows, -1)
+            out[i] = out[i].scatter_reduce(1, pos, U.reshape(n_rows, -1), reduce="amin",
+                                           include_self=True)
+    return out
 
 
 def fold_kind_cells(R, Rk_pad, n_real: int, *, PAD: int, n_anti: int,

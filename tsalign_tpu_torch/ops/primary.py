@@ -21,7 +21,7 @@ import torch
 from ..config import TemplateSwitchConfig
 from ..costs import INF
 from ..geometry import AlignmentRange
-from .common import DEV_INF, to_device_costs
+from .common import DEV_INF, device_key, to_device_costs
 from .sweep import sweep_flanked, sweep_flankless
 
 
@@ -124,7 +124,7 @@ class PrimarySweep:
         return subs, dd, io, ie
 
     def _inputs_on(self, device):
-        key = str(device)
+        key = device_key(device)
         if key not in self._dev_inputs:
             arrays = self.flankless_inputs() if self.F == 1 else self.flanked_inputs()
             self._dev_inputs[key] = tuple(

@@ -28,13 +28,20 @@ differences:
     pair axis (``_same_module_batch``); a kind's chunks one launch of the
     module scan a chunk index over the pairs for which that chunk is live
     (``ops.modules.kind_all_chunks``), the assembly pair by pair;
-  * reentry takes the chunked route with per-pair live chunk bases; the
-    compact live-column route (``_kind_sel_map_jit``) only changes which
-    columns launch, not the reentry field, and is not ported;
-  * not ported: the mesh / shard path, the fused rounds loop
-    (``_align_fused``, ``_keep_fused_fields``, ``_bounds_device``), the
-    TPU workarounds (``sync_point``, the module kernel's compile-fallback
-    retries, the masked-reduction summary);
+  * reentry takes the JAX batch's route per kind and round: the chunked
+    route with per-pair live chunk bases, or the compact live-column route
+    (``_kind_sel_map_jit``, here ``ops.modules.kind_sel_chunks``) when its
+    power-of-two bucket is at most half the widest pair's live chunks; each
+    kind's route of each round is appended to `route_log`;
+  * `align` runs the fused rounds loop (`_align_fused`,
+    ``parallel/fused_rounds.py``) where `fused` says so: by default on a
+    CUDA device and not on the CPU, as the JAX package takes it off the
+    CPU backend; otherwise the host loop (`_align_host`).  Its retry chain
+    (for Mosaic compile rejections) and its catch-all are not ported: an
+    exception in the fused loop propagates;
+  * not ported: the mesh / shard path, the TPU workarounds (``sync_point``,
+    the module kernel's compile-fallback retries, the masked-reduction
+    summary, the bulk transfer of a single pair's kept fields);
   * kept fields: ``keep_fields=True`` keeps host int64 arrays, "device"
     keeps ``fields.py`` views of each pair's slice of the batched tensors;
   * `align_pairs` takes a `device` and falls back, on ``OverflowError``, to
@@ -59,13 +66,15 @@ from ..geometry import AlignmentRange
 from ..numpy_engine import min_tsm_cost_bound
 from ..ops.common import (
     DEV_INF,
+    device_key,
     from_device_costs,
     full_inf,
     to_device_costs,
     validate_magnitudes,
 )
 from ..ops.module_scan import module_scan_diag
-from ..ops.modules import KindModule, fold_kind_cells, kind_all_chunks
+from .. import engine as _engine
+from ..ops.modules import KindModule, fold_kind_cells, kind_all_chunks, kind_sel_chunks
 from ..ops.primary import PrimarySweep
 from ..ops.primary_sweep import GAP_NONE
 from ..ops.sweep import sweep_flanked, sweep_flankless
@@ -114,7 +123,7 @@ def _same_module_batch(kms, device):
     B = module_scan_diag(*(torch.stack([t[n] for t in ts]) for n in names),
                          fwd=km0.dk == 0, allow_sdel=km0.allow_sdel)
     for i, km in enumerate(kms):
-        km._b_pre[str(device)] = B[i]
+        km._b_pre[device_key(device)] = B[i]
 
 
 def _acc_batch(R_acc, R_new):
@@ -122,6 +131,10 @@ def _acc_batch(R_acc, R_new):
     whether anything improved (see engine.accumulate)."""
     R2 = torch.minimum(R_acc, R_new)
     return R2, bool(torch.equal(R2, R_acc))
+
+
+class NotConvergedError(RuntimeError):
+    """Not every pair of a batch converged within `max_rounds`."""
 
 
 def _bucket(n: int) -> int:
@@ -142,6 +155,7 @@ _BATCH_MEMO_CAP = 6
 _BATCH_BOUNDS_MEMO: dict = {}
 _BATCH_KINDS_MEMO: dict = {}
 _BATCH_ARRAYS_MEMO: dict = {}
+_BATCH_S32_MEMO: dict = {}
 
 
 def _memo_put(memo: dict, key, value) -> None:
@@ -165,14 +179,19 @@ class BatchedTSAligner:
         bucket: bool = True,
         *,
         device,
+        fused: Optional[bool] = None,
     ):
         """`ranges`: optional per-pair focus ranges (chained-mode segments
         align a focus window inside radius context, chain/driver.py): the
         root seed sits at each pair's (reference_offset, query_offset) and
         the target at its limits; the primary roams the whole padded grid
         (NoPrune semantics, as the single-pair segment path).  `device`:
-        where the fields live and the kernels run ("cuda" or "cpu")."""
+        where the fields live and the kernels run ("cuda" or "cpu").
+        `fused`: run the fused rounds loop (True) or the host loop (False);
+        None takes the fused loop on a CUDA device and the host loop on the
+        CPU."""
         self.device = torch.device(device)
+        self.fused = self.device.type == "cuda" if fused is None else bool(fused)
         self.config = config
         self.use_lower_bounds = use_lower_bounds
         self.n_pairs = len(pairs)
@@ -226,6 +245,10 @@ class BatchedTSAligner:
         ]
         self.kind_sets: Optional[List[List[KindModule]]] = None
         self.sdel_budget: Optional[int] = None
+        # One entry a kind and reentry round, as engine.TorchAligner's, with
+        # "e_sel" (each pair's gathered columns) for the compact route.
+        self.route_log: List[dict] = []
+        self._reentries = 0
 
     def _validate(self) -> None:
         cfg = self.config
@@ -308,6 +331,37 @@ class BatchedTSAligner:
             A_cells.astype(np.int64) > thresh, np.int32(DEV_INF), A_cells
         )
 
+    def _bounds_device(self):
+        """Device (S32, has_lb) of the per-pair remaining bounds for the
+        fused loop: clamped int32 (finite values stay below the device's
+        infinite threshold, as a lower bound may only shrink; host INF maps
+        to DEV_INF, so the S == INF prune stays), memoised under `_bounds`'
+        content key."""
+        from ..chain.plan import config_digest
+
+        key = (
+            config_digest(self.config),
+            self.refs.tobytes(),
+            self.qrys.tobytes(),
+            tuple(self.real),
+            tuple(self.limits),
+            self.use_lower_bounds,
+            str(self.device),
+        )
+        if key not in _BATCH_S32_MEMO:
+            BIG = int(DEV_INF) // 2
+            S32 = np.full((self.n_pairs, self.nr + 1, self.nq + 1), int(DEV_INF), np.int32)
+            has_lb = np.zeros(self.n_pairs, bool)
+            for i, lb in enumerate(self._bounds()):
+                if lb is None:
+                    continue
+                has_lb[i] = True
+                S = np.minimum(lb.S, BIG - 1).astype(np.int32)
+                S32[i] = np.where(lb.S >= INF, np.int32(DEV_INF), S)
+            _memo_put(_BATCH_S32_MEMO, key, (torch.from_numpy(S32).to(self.device),
+                                             torch.from_numpy(has_lb).to(self.device)))
+        return _BATCH_S32_MEMO[key]
+
     def _can_improve_pair(self, i: int, E_i: np.ndarray, best: int) -> bool:
         lb = self._bounds()[i]
         if lb is None or best >= INF:
@@ -354,7 +408,7 @@ class BatchedTSAligner:
         # The intra-sequence kinds' module fields, on this device: one launch
         # of the diagonal mode a kind, over every pair.
         for km0, kms, _ in self._kind_state:
-            if km0.spec.same_seq and str(self.device) not in km0._b_pre:
+            if km0.spec.same_seq and device_key(self.device) not in km0._b_pre:
                 _same_module_batch(kms, self.device)
 
     def _build_kind_sets_uncached(self, budget: Optional[int]) -> None:
@@ -420,6 +474,7 @@ class BatchedTSAligner:
         """Batched all-kinds reentry cells from the stacked (pruned) entry
         fields."""
         B = self.n_pairs
+        self._reentries += 1
         R_dev = full_inf((B, self.nr + 1, self.nq + 1), self.device)
         a_dev = {}  # pk -> the entry fields of every pair, in the kind's orientation
         for km0, kms, e_bases in self._kind_state:
@@ -446,7 +501,35 @@ class BatchedTSAligner:
             if spec.pk not in a_dev:
                 a_dev[spec.pk] = torch.from_numpy(
                     np.ascontiguousarray(A_mod)).to(self.device)
-            slabs = kind_all_chunks(kms, a_dev[spec.pk], eb_b, PAD, width)
+            log = {"round": self._reentries, "kind": (spec.pk, spec.sk, spec.dk)}
+            # Compact-column route (the single-pair engine's post-round-1
+            # fast path): once the pruned entry fields are sparse but
+            # scattered, whole chunks stay live while only a handful of
+            # columns in them matter — gather just the live columns per
+            # pair into a shared power-of-two bucket instead, taken on a
+            # clear win only (the JAX batch's rule, ``batch_ts.py:527-535``
+            # of ``tsalign_tpu/parallel``).  Sentinel slots (0)
+            # re-gather column 0 (a duplicate or pruned-INF) — exact either
+            # way.
+            n_live = col_live.sum(axis=1)
+            Kb = C
+            while Kb < max(int(n_live.max()), 1):
+                Kb *= 2
+            live_chunks_max = int((eb_b >= 0).sum(axis=1).max())
+            if _engine._COMPACT_ROUTE and 2 * Kb <= live_chunks_max * C:
+                e_sel_b = np.zeros((B, Kb), np.int64)
+                for i in range(B):
+                    idx = np.nonzero(col_live[i])[0]
+                    e_sel_b[i, : idx.size] = idx
+                OUTW = PAD + n_anti + 1 + max(0, km0.s_hi)
+                slabs = kind_sel_chunks(kms, a_dev[spec.pk], e_sel_b, PAD, OUTW,
+                                        n_live=n_live)
+                log.update(route="compact", Kb=Kb,
+                           e_sel=tuple(tuple(int(e) for e in row) for row in e_sel_b))
+            else:
+                slabs = kind_all_chunks(kms, a_dev[spec.pk], eb_b, PAD, width)
+                log.update(route="chunked", chunks=int((eb_b >= 0).sum()))
+            self.route_log.append(log)
             for i, Rk_pad in enumerate(slabs):
                 if Rk_pad is None:
                     continue
@@ -475,11 +558,100 @@ class BatchedTSAligner:
         _memo_put(_BATCH_ARRAYS_MEMO, memo_key, out)
         return out
 
-    def align(self) -> List[EngineResult]:
-        """Per-pair engine results (exact optimum each), batch-lockstep (the
-        JAX package's host rounds loop, ``_align_host``)."""
-        B = self.n_pairs
+    def _root_seeds(self) -> torch.Tensor:
+        """(B, F, 3, nr+1, nq+1) root seeds: 0 at each pair's origin in flank
+        layer R's GAP_NONE plane (R the right flank's length), DEV_INF
+        elsewhere."""
         F = self.config.left_flank_length + self.config.right_flank_length + 1
+        seeds0 = np.full((self.n_pairs, F, 3, self.nr + 1, self.nq + 1), INF, dtype=np.int64)
+        for i, rg in enumerate(self.ranges):
+            seeds0[
+                i, self.config.right_flank_length, GAP_NONE,
+                rg.reference_offset, rg.query_offset,
+            ] = 0
+        return torch.from_numpy(to_device_costs(seeds0)).to(self.device)
+
+    def align(self) -> List[EngineResult]:
+        """Per-pair engine results (exact optimum each), batch-lockstep: the
+        fused rounds loop when `fused`, else the host rounds loop."""
+        return self._align_fused() if self.fused else self._align_host()
+
+    def _align_fused(self) -> List[EngineResult]:
+        """The rounds loop with its stop algebra on the device
+        (``_align_fused``; ``parallel/fused_rounds.py``)."""
+        from . import fused_rounds
+
+        B = self.n_pairs
+        keep = bool(self.keep_fields)
+        arrays_b = self._stack_sweep_arrays()
+        root = self._root_seeds()
+        L, R = self.config.left_flank_length, self.config.right_flank_length
+        lr = torch.tensor([r for r, _ in self.limits], device=self.device)
+        lq = torch.tensor([q for _, q in self.limits], device=self.device)
+        M0 = _sweep_batch(arrays_b, root, L=L, R=R)
+        E0, t0 = fused_rounds._summ(M0, lr, lq)
+        t0_host = t0.cpu().numpy()
+        best0 = [INF if int(t) >= int(DEV_INF) // 2 else int(t) for t in t0_host]
+        results = [EngineResult(cost=INF, rounds=1) for _ in range(B)]
+
+        # Every pair already provably done at round 1 (the k * delta bound
+        # or the TSLB improvement stop): no kinds, no bounds on the device.
+        delta = min_tsm_cost_bound(self.config)
+        if all(b < INF for b in best0):
+            E0_host = E0.cpu().numpy()
+            if all((delta > 0 and delta > best0[i])
+                   or not self._can_improve_pair(i, E0_host[i], best0[i])
+                   for i in range(B)):
+                for i in range(B):
+                    results[i].cost = best0[i]
+                self._keep_fused_fields(results, [M0], [], [E0], np.ones(B, np.int32),
+                                        np.zeros(B, np.int32))
+                return results
+
+        if self.kind_sets is None:
+            self._build_kind_sets(self._derive_budget(best0))
+        S32, has_lb = self._bounds_device()
+        data = dict(root=root, arrays=arrays_b, S32=S32, has_lb=has_lb, lr=lr, lq=lq, E0=E0,
+                    M0=M0, best0=torch.where(t0 >= DEV_INF // 2, DEV_INF, t0))
+        meta = dict(delta=delta, slack=self.config.secondary_length_bonus * (self.nr + self.nq),
+                    max_rounds=self.max_rounds, keep=keep, L=L, R=R)
+        out = fused_rounds.fused_loop(self, data, meta)
+        if not bool(out["done"].all()):
+            raise NotConvergedError(
+                f"BatchedTSAligner: not all pairs converged within "
+                f"max_rounds={self.max_rounds}"
+            )
+        best = out["best"].cpu().numpy()
+        rounds = out["rounds"].cpu().numpy()
+        for i in range(B):
+            results[i].cost = INF if int(best[i]) >= int(DEV_INF) // 2 else int(best[i])
+            results[i].rounds = int(rounds[i])
+        self._keep_fused_fields(results, out["M_all"], out["R_all"], out["E_all"],
+                                out["np_cnt"].cpu().numpy(), out["nr_cnt"].cpu().numpy())
+        return results
+
+    def _keep_fused_fields(self, results, M_all, R_all, E_all, np_cnt, nr_cnt):
+        """Each pair's kept fields from the fused loop's rounds: done is
+        monotone, so pair i's are the first np_cnt[i] primary and nr_cnt[i]
+        reentry rounds (``_keep_fused_fields``).  The entry layers are read
+        to the host here, after the loop."""
+        if not self.keep_fields:
+            return
+        for i, res in enumerate(results):
+            for r in range(int(np_cnt[i])):
+                if self.keep_fields is True:
+                    res.primary_fields.append(from_device_costs(M_all[r][i].cpu().numpy()))
+                else:
+                    entry = from_device_costs(E_all[r][i].cpu().numpy())
+                    res.primary_fields.append(FieldView4(M_all[r][i], entry_cells=entry))
+            for r in range(int(nr_cnt[i])):
+                res.reentry_fields.append(
+                    from_device_costs(R_all[r][i].cpu().numpy())
+                    if self.keep_fields is True else FieldView2(R_all[r][i]))
+
+    def _align_host(self) -> List[EngineResult]:
+        """The host rounds loop (``_align_host``)."""
+        B = self.n_pairs
 
         arrays_b = self._stack_sweep_arrays()
 
@@ -491,14 +663,7 @@ class BatchedTSAligner:
                 R=self.config.right_flank_length,
             )
 
-        seeds0 = np.full((B, F, 3, self.nr + 1, self.nq + 1), INF, dtype=np.int64)
-        for i in range(B):
-            rg = self.ranges[i]
-            seeds0[
-                i, self.config.right_flank_length, GAP_NONE,
-                rg.reference_offset, rg.query_offset,
-            ] = 0
-        seeds = torch.from_numpy(to_device_costs(seeds0)).to(self.device)
+        seeds = self._root_seeds()
 
         lr_idx = torch.tensor([r for r, _ in self.limits], device=self.device)
         lq_idx = torch.tensor([q for _, q in self.limits], device=self.device)
@@ -652,7 +817,7 @@ class BatchedTSAligner:
             best = new_best
             E_host = E_next
         else:
-            raise RuntimeError(
+            raise NotConvergedError(
                 f"BatchedTSAligner: not all pairs converged within "
                 f"max_rounds={self.max_rounds}"
             )
@@ -710,6 +875,7 @@ def align_pairs(
     *,
     device,
     on_batch=None,
+    fused: Optional[bool] = None,
 ):
     """Full batched record pipeline: align many (reference, query) string
     pairs in one batch and return a list of AlignmentResult records (the
@@ -717,7 +883,8 @@ def align_pairs(
     extension, equal-cost ranges, reference-schema TOML), on `device`.
     `on_batch(indices, aligner)`, when given, is called after each batch's
     traceback with the pairs' input indices and its BatchedTSAligner (whose
-    ``last_results`` hold each pair's rounds).
+    ``last_results`` hold each pair's rounds).  `fused` picks the rounds
+    loop of the batches and of the single-pair fallbacks (`BatchedTSAligner`).
 
     Falls back to the exact single-pair path per pair when the K-scaled
     algebra would overflow the device int32 domain.
@@ -752,6 +919,7 @@ def align_pairs(
                     maximise_total_length=maximise_total_length,
                     chunk=chunk,
                     device=device,
+                    fused=fused,
                     on_batch=None if on_batch is None else (
                         lambda idx, bt, part=part: on_batch([part[j] for j in idx], bt)),
                 )
@@ -779,14 +947,14 @@ def align_pairs(
     t0 = _time.monotonic()
     try:
         bt = BatchedTSAligner(cfg_run, enc, chunk=chunk, keep_fields="device",
-                              device=device)
+                              device=device, fused=fused)
         traced = bt.align_with_traceback()
         if on_batch is not None:
             on_batch(list(range(len(pairs))), bt)
     except OverflowError:
         # Scaled magnitudes exceed the int32 device domain: single-pair
         # exact fallback (the facade's own int64 fallback).
-        a = Aligner(costs=config, device=device)
+        a = Aligner(costs=config, device=device, fused=fused)
         out = []
         for i, (r, q) in enumerate(pairs):
             nm = names[i] if names else ("reference", "query")
@@ -812,7 +980,7 @@ def align_pairs(
             if max(0, rounds - 1) * l_max_eff >= K:
                 redo.append(i)
     if redo:
-        a = Aligner(costs=config, device=device)
+        a = Aligner(costs=config, device=device, fused=fused)
         for i in redo:
             nm = names[i] if names else ("reference", "query")
             comp_i, aln_i = a._run_engine(
