@@ -55,7 +55,8 @@ Phases, each ending with a line of its wall time (phase_s):
      configuration and under the flanked default: every record reprices to
      its cost, the sweep's and the module scan's pair axes and the diagonal
      mode launch, and the shortest and the longest pair cost the same
-     through the single-pair port (its wall beside the batch's, and the
+     through the single-pair port where the redo pass did not re-align them
+     with it already (its wall beside the batch's, and the
      batch's kernel time on the card by CUDA events around each launch);
      then the eight pairs of tests/fixtures/torch_port_batch_pairs.json
      (60-128 bp, two buckets): cost and CIGAR equal the JAX package's
@@ -101,20 +102,40 @@ Phases, each ending with a line of its wall time (phase_s):
      0; then at a 160 x 150 pair (chunk 16) the same, and kind_sel_chunks on
      the card against its plain run on the CPU for a cross and a
      same-sequence kind (equal_mod_inf: the card runs the skipping mode).
-     (b) Both main pairs through the facade's host loop (fused=False) on the
-     chunked route (the private switch engine._COMPACT_ROUTE off) and the
-     compact route in turns, chunked, compact, chunked, compact, from cold
-     memos: the records are equal but for their wall lines; each run's wall,
-     engine passes and rounds, module-scan launches, assembly calls, compact
-     launches, mean live columns and bucket, kernels' device ms.  (c) The
-     fused rounds loop: the flankless main pair through the facade's default
-     (the single-pair delegation) against (b)'s compact run (the records may
-     differ only in FUSED_MAY_DIFFER), then phase 7's flankless batch
-     (K-scaled, BatchedTSAligner with the fused and the host loop: costs,
-     rounds and alignments equal); at most two control reads a round of a
-     loop, none larger than the all-done flag and eight kinds' chunk
-     liveness; the peak device memory.  (d) The facade's default runs the
-     fused loop, with max_template_switches=1 or prune_range the host loop.
+     (b) The flankless main pair through the facade's host loop (fused=False)
+     on the chunked route (the private switch engine._COMPACT_ROUTE off),
+     then on the compact route, each from cold memos: the records are equal
+     but for their wall lines; each run's wall, engine passes and rounds,
+     module-scan launches, assembly calls, compact launches, mean live
+     columns and bucket, kernels' device ms.  (c) The fused rounds loop:
+     phase 5's run of the flankless main pair, the facade's default (the
+     single-pair delegation), against (b)'s compact run (the records may
+     differ only in FUSED_MAY_DIFFER); at most two control reads a round of a loop, none
+     larger than the all-done flag and eight kinds' chunk liveness, here and
+     in phase 7's batch (phase 11 (d) holds that batch against the host
+     loop); the peak device memory.  (d) The facade's default runs the fused
+     loop, with max_template_switches=1 or prune_range the host loop;
+ 11. the mesh paths (tsalign_tpu_torch/parallel/mesh.py: D shards on cuda:0
+     for D in 1 and 4, and one shard a card where there are several).  (a)
+     BatchedGapAffine on 32 seeded pairs of 900-1020 bp in the 1024 bucket:
+     `costs` (one launch of the flankless sweep's pair axis) equals its plain
+     copy on the card (torch.equal), `sharded_step` over each data mesh
+     gathers the same costs and their float32 mean, four pairs cost the same
+     through the single-pair port with no_ts.  (b) sp_sweep_flankless and
+     sp_sweep_flanked over each sp mesh on the two main pairs, from the root
+     seeds and the seeds of the round after the first reentry: torch.equal
+     to the sweep kernel's field; then a 4,000 x 4,000 flankless root sweep
+     over 4 shards, its wall beside the kernel's.  (c) sp_reentry over 4
+     shards at the flankless main pair's first round with every kind and
+     chunk live (the budget of best + 40, the entry field unpruned): equal to
+     the unsharded chunked route, the
+     module-scan launches of each shard, the diagonal mode once a
+     same-sequence kind.  (d) The data axis over 2 shards: the batch
+     fixture's pairs through align_pairs(mesh=) (cost and CIGAR of the JAX
+     package), then phase 7's flankless batch, whose mesh run is the host
+     rounds loop: its records equal phase 7's fused records but for
+     FUSED_MAY_DIFFER, its rounds the fused loop's, its assembly calls the
+     unsharded host loop's; the module-scan launches of each shard.
 Any failure raises, so the script exits nonzero before its last line.  The
 last lines are the kernels' JSON record, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -172,6 +193,7 @@ from tsalign_tpu_torch.ops.common import (DEV_INF, DEV_INF_THRESH, dead_state_th
                                           equal_mod_inf, sat_add)
 from tsalign_tpu_torch.ops.module_scan import launch_plan, module_scan, module_scan_diag
 from tsalign_tpu_torch.ops.modules import module_scan_torch
+from tsalign_tpu_torch.ops.primary_sweep import GAP_NONE
 from tsalign_tpu_torch.ops import sweep as sweep_ops
 from tsalign_tpu_torch.ops.sweep import (dpx_chain_clocks, sweep_flanked, sweep_flanked_torch,
                                          sweep_flankless, sweep_flankless_torch)
@@ -929,9 +951,9 @@ class ChainMeter:
         meter = self
 
         def batch_align(orig):
-            def run(bt):
+            def run(bt, **kwargs):
                 t0 = time.monotonic()
-                results = orig(bt)
+                results = orig(bt, **kwargs)
                 meter.batches.append(dict(
                     traceback=bool(bt.keep_fields), bucket=[bt.nr, bt.nq], pairs=bt.n_pairs,
                     rounds=max(r.rounds for r in results), s=time.monotonic() - t0))
@@ -1115,14 +1137,19 @@ def phase5():
     r, q = planted_pair(rng, 500, 40, 5, True, q_len=420)
     al = get_alphabet("dna-n")
     cfg = TemplateSwitchConfig.default(al)
-    _build.launches.clear()
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    res = tsalign_tpu_torch.align(r, q, device=DEV, reference_name=MAIN_NAMES[0],
-                                  query_name=MAIN_NAMES[1])
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    counts = dict(_build.launches)
+    from tsalign_tpu_torch.parallel import fused_rounds
+
+    fused_rounds.control_reads.clear()
+    torch.cuda.reset_peak_memory_stats()
+    with RouteMeter() as meter:
+        res = tsalign_tpu_torch.align(r, q, device=DEV, reference_name=MAIN_NAMES[0],
+                                      query_name=MAIN_NAMES[1])
+    wall = meter.wall
+    counts = meter.launches
+    # the facade's default on the card, the fused loop: phase 10 (c) holds
+    # this run against the host loop
+    fused_run = dict(meter=meter, control_reads=control_reads_by_round(),
+                     peak_mem_bytes=torch.cuda.max_memory_allocated())
     cost = res.stats()["cost"]
     priced = price_alignment(cfg, al.encode(r), al.encode(q), res.result.alignment)
     if priced != cost:
@@ -1136,7 +1163,7 @@ def phase5():
     say(5, n_r=len(r), n_q=len(q), cost=cost, repriced=priced,
         ts=res.stats()["template_switch_amount"], wall_s=wall,
         cells=cells, cells_per_s=cells / wall, launches=counts)
-    return r, q, counts, res.to_toml()
+    return r, q, counts, res.to_toml(), fused_run
 
 
 def phase5_shapes(r, q):
@@ -1319,7 +1346,8 @@ def phase7_batch(flanked):
     eight pairs of `batch_pairs`, under the default configuration or the
     flanked default.  Every record must reprice to its cost, and the
     shortest and the longest pair must cost the same through the single-pair
-    port (timed in the same run).  Returns the launches of the batch and the
+    port (timed in the same run), unless the redo pass re-aligned the pair
+    with the single-pair engine already.  Returns the launches of the batch and the
     batch itself (records, rounds, wall, the fused loop's control reads and
     peak memory) for phase 10."""
     al = get_alphabet("dna-n")
@@ -1379,6 +1407,8 @@ def phase7_batch(flanked):
     singles = {}
     lengths = [len(r) + len(q) for r, q in pairs]
     for i in (int(np.argmin(lengths)), int(np.argmax(lengths))):
+        if redone(i):  # its record came from the single-pair engine already
+            continue
         r, q = pairs[i]
         torch.cuda.synchronize()
         t0 = time.monotonic()
@@ -1937,18 +1967,18 @@ def phase10_compact_pipeline():
 
 def phase10_host_routes(main_pair):
     """(b) The host rounds loop on the flankless main pair through the
-    facade, the chunked route (the private switch off) and the compact route
-    in turns, chunked, compact, chunked, compact, each from cold memos: the
-    records must be equal but for their wall lines.  The flanked pair's A/B
-    is left out for the smoke's time.  In the first compact run, (a) at the
+    facade, the chunked route (the private switch off), then the compact
+    route, each from cold memos: the records must be equal but for their
+    wall lines.  The flanked pair's A/B and a second run of each route are
+    left out for the smoke's time.  In the first compact run, (a) at the
     main pair: the two routes' reentry fields on the card at the first
     engine pass's first compact round after round 1.  Returns the launches of
-    the last run of each route and the compact run's record."""
+    each route's run and the compact run's record."""
     from tsalign_tpu_torch import engine
 
     name, cfg, r, q = main_pair
     launches, records = {}, []
-    for run, compact in enumerate((False, True, False, True)):
+    for run, compact in enumerate((False, True)):
         engine._COMPACT_ROUTE = compact
         cold_memos()
         try:
@@ -2004,69 +2034,31 @@ def check_control_reads(per_round, largest, n_pairs, n_max, chunk=64):
         raise AssertionError(f"fused: a control read of {largest} elements")
 
 
-def phase10_fused(main_pair, host_record, batch7):
-    """(c) The fused rounds loop against the host loop: the flankless main
-    pair through the facade's default (the single-pair delegation on the
-    card) against (b)'s compact host run; then phase 7's flankless batch,
-    which ran the fused loop (`align_pairs`' default on the card), against
-    the same batch through the host loop (`fused=False`): equal records
-    but for the wall lines, equal rounds.  At most two control reads a round
-    of a loop, none of them field-sized."""
-    from tsalign_tpu_torch.parallel import fused_rounds
-
-    launches = {}
-    name, cfg, r, q = main_pair
-    cold_memos()
-    fused_rounds.control_reads.clear()
-    torch.cuda.reset_peak_memory_stats()
-    with RouteMeter() as meter:
-        res = tsalign_tpu_torch.Aligner(costs=cfg, device=DEV).align(
-            r, q, reference_name=MAIN_NAMES[0], query_name=MAIN_NAMES[1])
+def phase10_fused(main_pair, host_record, batch7, fused_run):
+    """(c) The fused rounds loop against the host loop: phase 5's run of the
+    flankless main pair, the facade's default (the single-pair delegation on
+    the card), against (b)'s compact host run: equal records but for
+    FUSED_MAY_DIFFER.  At most two control reads a round of a loop, none of
+    them field-sized, there and in phase 7's flankless batch, which ran the
+    fused loop (`align_pairs`' default on the card); phase 11 (d) holds that
+    batch against the host loop, on which a mesh runs."""
+    name, cfg, r, q, record = main_pair
+    meter = fused_run["meter"]
     loops = [eng.loop for eng, _ in meter.engines]
     if "fused" not in loops:
         raise AssertionError(f"fused: the facade's default ran the loops {loops}")
-    differ = differing_keys(res.to_toml(), host_record)
+    differ = differing_keys(record, host_record)
     if not differ <= FUSED_MAY_DIFFER:
         raise AssertionError(f"fused {name}: the record differs from the host loop's in {differ}")
-    per_round, largest = control_reads_by_round()
+    per_round, largest = fused_run["control_reads"]
     check_control_reads(per_round, largest, 1, max(len(r), len(q)))
-    launches["routes_fused"] = meter.launches
-    say(10, step="c_fused_single_pair", pair=name, loops=loops, cost=res.stats()["cost"],
+    say(10, step="c_fused_single_pair", pair=name, run="phase 5", loops=loops,
         record_differs_in=sorted(differ), control_reads_per_round=per_round,
-        largest_control_read=largest, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        largest_control_read=largest, peak_mem_bytes=fused_run["peak_mem_bytes"],
         **meter.summary())
-
     check_control_reads(batch7["control_reads_per_round"], batch7["largest_control_read"],
                         len(batch7["records"]), 512)
-    al = get_alphabet("dna-n")
-    rounds = {}
-
-    def on_batch(idx, bt):
-        for i, x in zip(idx, bt.last_results):
-            rounds[i] = x.rounds
-
-    cold_memos()
-    torch.cuda.reset_peak_memory_stats()
-    with RouteMeter() as meter:
-        records = align_pairs(TemplateSwitchConfig.default(al), batch_pairs(), device=DEV,
-                              on_batch=on_batch, fused=False)
-    host_rounds = [rounds[i] for i in range(len(records))]
-    equal = ([record_lines(x.to_toml()) for x in records]
-             == [record_lines(x.to_toml()) for x in batch7["records"]])
-    say(10, step="c_batch", pairs=len(records), costs=[x.result.cost for x in records],
-        rounds_host=host_rounds, rounds_fused=batch7["rounds"], records_equal=equal,
-        fused_wall_s=batch7["wall_s"], host_wall_s=meter.wall,
-        fused_kernel_device_ms=batch7["kernel_device_ms"],
-        host_kernel_device_ms=meter.kernel_ms,
-        fused_control_reads_per_round=batch7["control_reads_per_round"],
-        fused_largest_control_read=batch7["largest_control_read"],
-        fused_peak_mem_bytes=batch7["peak_mem_bytes"],
-        host_peak_mem_bytes=torch.cuda.max_memory_allocated(),
-        fused_launches=batch7["launches"], host_launches=meter.launches,
-        host_assembly_calls=meter.assembly_calls)
-    if not equal or host_rounds != batch7["rounds"]:
-        raise AssertionError("fused batch: the records or rounds differ from the host loop's")
-    return launches
+    return {"routes_fused": meter.launches}
 
 
 def phase10_delegation():
@@ -2089,17 +2081,297 @@ def phase10_delegation():
             cost=res.stats()["cost"], wall_s=meter.wall)
 
 
-def phase10(r, q, batch7):
-    """The routes of the rounds loop on the card, (a)-(d); `batch7` is
-    phase 7's flankless batch (its fused loop's records, rounds and
-    counts).  Returns the launches of the last chunked, compact and fused
-    runs."""
+def phase10(r, q, record, batch7, fused_run):
+    """The routes of the rounds loop on the card, (a)-(d); `record` and
+    `fused_run` are phase 5's record and run of the main pair (the fused
+    loop), `batch7` phase 7's flankless batch (its fused loop's records,
+    rounds and counts).  Returns the launches of the chunked, compact and
+    fused runs."""
     main_pair = ("flankless", TemplateSwitchConfig.default(get_alphabet("dna-n")), r, q)
     phase10_compact_pipeline()
     launches, host_record = phase10_host_routes(main_pair)
-    launches.update(phase10_fused(main_pair, host_record, batch7))
+    launches.update(phase10_fused(main_pair + (record,), host_record, batch7, fused_run))
     phase10_delegation()
     return launches
+
+
+# The unsharded host rounds loop's assembly calls on phase 7's flankless batch
+# (its rounds are the fused loop's, phase 7's): a mesh splits the launches and
+# must leave them as they are.
+HOST_LOOP_BATCH_ASSEMBLY_CALLS = 2200
+
+
+def meshes(axis, shards=(1, 4)):
+    """(name, Mesh) of the phase: D shards on cuda:0 for each D, and one shard
+    a card where the machine has more than one."""
+    from tsalign_tpu_torch.parallel.mesh import Mesh
+
+    out = [(f"cuda:0 x {D}", Mesh(["cuda:0"] * D, (axis,))) for D in shards]
+    n = torch.cuda.device_count()
+    if n > 1:
+        out.append((f"cuda:0..{n - 1}", Mesh([f"cuda:{i}" for i in range(n)], (axis,))))
+    return out
+
+
+class ShardMeter:
+    """The kernel launches of each shard of a mesh path: every call of the
+    wrapped functions of `module` is one shard's launch, the shards in order,
+    so call k of a function belongs to shard k mod D."""
+
+    def __init__(self, module, names, D):
+        self.module, self.names, self.D = module, names, D
+
+    def __enter__(self):
+        self.by_shard = [collections.Counter() for _ in range(self.D)]
+        self._inner = {n: getattr(self.module, n) for n in self.names}
+        calls = collections.Counter()
+
+        def wrap(name, inner):
+            def counted(*a, **kw):
+                before = dict(_build.launches)
+                out = inner(*a, **kw)
+                shard = calls[name] % self.D
+                calls[name] += 1
+                for k, v in _build.launches.items():
+                    if v - before.get(k, 0):
+                        self.by_shard[shard][k] += v - before.get(k, 0)
+                return out
+            return counted
+
+        for n, inner in self._inner.items():
+            setattr(self.module, n, wrap(n, inner))
+        return self
+
+    def __exit__(self, *exc):
+        for n, inner in self._inner.items():
+            setattr(self.module, n, inner)
+        return False
+
+    def scans(self):
+        return [{k: v for k, v in c.items() if k.startswith("module_scan")} for c in self.by_shard]
+
+
+def phase11_gap_affine():
+    """(a) BatchedGapAffine on 32 seeded pairs of 900-1020 bp in the 1024
+    bucket: `costs` (the kernel route, one launch of the flankless sweep's
+    pair axis) against the plain copy on the card, `sharded_step` over each
+    data mesh, and four pairs against the single-pair port's no-TS cost."""
+    from tsalign_tpu_torch.parallel.batch import (BatchedGapAffine, batched_gap_affine,
+                                                  encode_batch, sweep_gap_affine)
+
+    al = get_alphabet("dna-n")
+    cfg = TemplateSwitchConfig.default(al)
+    rng = np.random.default_rng(1100)
+    pairs = [planted_pair(rng, int(rng.integers(900, 1021)), 40, 5, True) for _ in range(32)]
+    refs = encode_batch(al, [r for r, _ in pairs], pad_to=1024)
+    qrys = encode_batch(al, [q for _, q in pairs], pad_to=1024)
+    bg = BatchedGapAffine(cfg, device=DEV)
+    _build.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    costs = bg.costs(refs, qrys)
+    wall = time.monotonic() - t0
+    steps = {}
+    for name, mesh in meshes("data"):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        got, mean = bg.sharded_step(mesh, refs, qrys)
+        torch.cuda.synchronize()
+        steps[name] = dict(wall_s=time.monotonic() - t0, mean=float(mean))
+        if not np.array_equal(got.cpu().numpy(), costs) or got.device != mesh.devices[0]:
+            raise AssertionError(f"gap affine: sharded_step over {name} differs from costs")
+        if float(mean) != float(torch.from_numpy(costs).float().mean()):
+            raise AssertionError(f"gap affine: the batch mean over {name} is {float(mean)}")
+    launches = dict(_build.launches)
+    shards = sum(len(mesh.devices) for _, mesh in meshes("data"))
+    if launches != {"sweep_flankless_pairs": 1 + shards}:
+        raise AssertionError(f"gap affine: launches {launches}")
+    args = (bg.A, *bg.tables(DEV), torch.from_numpy(refs).to(DEV), torch.from_numpy(qrys).to(DEV))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    plain = batched_gap_affine(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.monotonic() - t0) * 1e3
+    if not torch.equal(torch.from_numpy(costs).to(DEV), plain):
+        raise AssertionError("gap affine: the kernel route differs from the plain copy")
+    singles = []
+    for r, q in pairs[:4]:
+        singles.append(int(tsalign_tpu_torch.align(r, q, device=DEV, no_ts=True).stats()["cost"]))
+    if singles != [int(c) for c in costs[:4]]:
+        raise AssertionError(f"gap affine: single-pair no-TS costs {singles}, batch {costs[:4]}")
+    say(11, step="a_gap_affine", pairs=len(pairs), bucket=1024, costs_first=costs[:8].tolist(),
+        equal=True, single_pair_no_ts=singles, costs_wall_s=wall,
+        kernel_route_ms=cuda_ms(lambda: sweep_gap_affine(*args), 5), plain_ms=plain_ms,
+        sharded_step=steps, launches=launches)
+    return launches
+
+
+def phase11_sp_sweeps(main_pairs):
+    """(b) sp_sweep_flankless and sp_sweep_flanked over each sp mesh on the
+    main pairs (F = 1 and F = 5), from the root seeds and the seeds of the
+    round after the first reentry, against the sweep kernel's field; then one
+    4,000 x 4,000 flankless root sweep over 4 shards, its wall beside the
+    kernel's."""
+    from tsalign_tpu_torch.parallel.sp_sweep import sp_sweep_flanked, sp_sweep_flankless
+
+    al = get_alphabet("dna-n")
+    for name, cfg, r, q in main_pairs:
+        eng = TorchAligner(cfg, al.encode(r), al.encode(q), device=DEV, keep_fields=False)
+        sweep = eng._get_sweep(True)
+        root = eng._root_seeds()
+        E, best, _ = eng._sweep_summary(root, True)
+        R = eng._reentry(eng._pruned_entry_cells(E, best),
+                         eng._build_kinds(eng._sdel_budget(best)), best=best)
+        for what, seeds in (("root", root), ("round 1", next_seeds(root, R))):
+            want = sweep.sweep(seeds)
+            kernel_ms = cuda_ms(lambda: sweep.sweep(seeds), 5)
+            for mesh_name, mesh in meshes("sp"):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                if sweep.F == 1:
+                    got = sp_sweep_flankless(sweep, seeds[0], mesh)
+                    equal = torch.equal(got, want[0])
+                else:
+                    got = sp_sweep_flanked(sweep, seeds, mesh)
+                    equal = np.array_equal(got, want.cpu().numpy())
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+                if not equal:
+                    raise AssertionError(f"sp sweep {name} {what} over {mesh_name}: the field "
+                                         "differs from the sweep kernel's")
+                say(11, step="b_sp_sweep", pair=name, F=sweep.F, seeds=what, mesh=mesh_name,
+                    shape=list(want.shape), equal=True, wall_s=wall, kernel_ms=kernel_ms)
+    rng = np.random.default_rng(4000)
+    r, q = planted_pair(rng, 4000, 40, 20, True, q_len=4000)
+    cfg = TemplateSwitchConfig.default(al)
+    sweep = TorchAligner(cfg, al.encode(r), al.encode(q), device=DEV)._get_sweep(True)
+    seeds = torch.full((1, 3, len(r) + 1, len(q) + 1), DEV_INF, dtype=torch.int32, device=DEV)
+    seeds[0, GAP_NONE, 0, 0] = 0
+    want = sweep.sweep(seeds)
+    kernel_ms = cuda_ms(lambda: sweep.sweep(seeds), 3)
+    mesh_name, mesh = meshes("sp", shards=(4,))[0]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    got = sp_sweep_flankless(sweep, seeds[0], mesh)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    if not torch.equal(got, want[0]):
+        raise AssertionError("sp sweep 4000 x 4000: the field differs from the sweep kernel's")
+    say(11, step="b_sp_sweep_4000", mesh=mesh_name, shape=list(want.shape), equal=True,
+        wall_s=wall, kernel_ms=kernel_ms, kernel_over_sp=kernel_ms / 1e3 / wall)
+
+
+def phase11_sp_reentry(main_pair):
+    """(c) sp_reentry over 4 shards of the card at the flankless main pair's
+    first round with every kind live (the budget of best + 40) and every
+    chunk live (the entry field unpruned), against the unsharded chunked
+    route (TorchAligner._reentry); the module-scan launches of each shard,
+    and the diagonal mode once a same-sequence kind (the shards share the
+    card's cache)."""
+    from tsalign_tpu_torch.parallel import sp_reentry as sp_module
+
+    name, cfg, r, q = main_pair
+    al = get_alphabet("dna-n")
+    cold_memos()
+    eng = TorchAligner(cfg, al.encode(r), al.encode(q), device=DEV, keep_fields=False,
+                       fused=False)
+    A, best, _ = eng._sweep_summary(eng._root_seeds(), True)
+    kinds = eng._build_kinds(eng._sdel_budget(best + 40))
+    mesh_name, mesh = meshes("sp", shards=(4,))[0]
+    _build.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with ShardMeter(sp_module, ("kind_all_chunks",), 4) as shards:
+        got = sp_module.sp_reentry(eng, A, kinds, mesh)
+    wall = time.monotonic() - t0
+    launches = dict(_build.launches)
+    same = sum(1 for km in kinds if km.same_seq)
+    if launches.get("module_scan_diag", 0) != same or launches.get("module_scan", 0) <= 0:
+        raise AssertionError(f"sp reentry: launches {launches} for {same} same-sequence kinds")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    want = eng._reentry(A, kinds)
+    torch.cuda.synchronize()
+    unsharded_wall = time.monotonic() - t0
+    if not torch.equal(torch.from_numpy(got).to(DEV), want):
+        raise AssertionError("sp reentry: the field differs from the unsharded chunked route's")
+    say(11, step="c_sp_reentry", pair=name, mesh=mesh_name, kinds=len(kinds),
+        same_sequence_kinds=same, equal=True, wall_s=wall, unsharded_wall_s=unsharded_wall,
+        module_scan_launches_by_shard=shards.scans(), launches=launches,
+        finite_cells=int((want < DEV_INF_THRESH).sum()))
+    return launches
+
+
+def phase11_data_axis(batch7):
+    """(d) The batched engine's data axis over 2 shards of the card: the
+    batch fixture's eight pairs through align_pairs(mesh=) against the JAX
+    package's records, then phase 7's flankless batch (the mesh runs the host
+    rounds loop): its records equal the fused loop's of phase 7 but for
+    FUSED_MAY_DIFFER, its rounds the fused loop's and its assembly calls the
+    unsharded host loop's; the module-scan launches of each shard."""
+    from tsalign_tpu_torch.parallel import batch_ts
+
+    al = get_alphabet("dna-n")
+    cfg = TemplateSwitchConfig.default(al)
+    mesh_name, mesh = meshes("data", shards=(2,))[0]
+    with open(BATCH_FIXTURE) as f:
+        fixture = json.load(f)["pairs"]
+    t0 = time.monotonic()
+    records = align_pairs(cfg, [(p["reference"], p["query"]) for p in fixture],
+                          names=[(p["name"], p["name"]) for p in fixture], device=DEV, mesh=mesh)
+    for p, rec in zip(fixture, records):
+        if rec.result.cost != p["cost"] or rec.cigar() != p["cigar"]:
+            raise AssertionError(f"mesh batch fixture {p['name']}: port {rec.result.cost} "
+                                 f"{rec.cigar()} != JAX {p['cost']} {p['cigar']}")
+    say(11, step="d_fixture", mesh=mesh_name, pairs=len(records), equal=True,
+        wall_s=time.monotonic() - t0)
+
+    rounds = {}
+
+    def on_batch(idx, bt):
+        for i, x in zip(idx, bt.last_results):
+            rounds[i] = x.rounds
+
+    cold_memos()
+    torch.cuda.reset_peak_memory_stats()
+    with RouteMeter() as meter, ShardMeter(
+            batch_ts, ("_sweep_batch", "_same_module_batch", "kind_all_chunks"), 2) as shards:
+        records = align_pairs(cfg, batch_pairs(), device=DEV, on_batch=on_batch, mesh=mesh)
+    mesh_rounds = [rounds[i] for i in range(len(records))]
+    differ = set().union(*(differing_keys(x.to_toml(), y.to_toml())
+                           for x, y in zip(records, batch7["records"])))
+    say(11, step="d_batch", mesh=mesh_name, pairs=len(records),
+        costs=[x.result.cost for x in records], rounds_mesh=mesh_rounds,
+        rounds_fused=batch7["rounds"], record_differs_in=sorted(differ),
+        fused_wall_s=batch7["wall_s"], mesh_wall_s=meter.wall,
+        fused_kernel_device_ms=batch7["kernel_device_ms"], mesh_kernel_device_ms=meter.kernel_ms,
+        fused_peak_mem_bytes=batch7["peak_mem_bytes"],
+        mesh_peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        fused_launches=batch7["launches"], mesh_launches=meter.launches,
+        mesh_assembly_calls=meter.assembly_calls,
+        module_scan_launches_by_shard=shards.scans())
+    if not differ <= FUSED_MAY_DIFFER or mesh_rounds != batch7["rounds"]:
+        raise AssertionError(f"mesh batch: the records differ in {differ} or the rounds "
+                             f"{mesh_rounds} from the fused loop's {batch7['rounds']}")
+    if meter.assembly_calls != HOST_LOOP_BATCH_ASSEMBLY_CALLS:
+        raise AssertionError(f"mesh batch: {meter.assembly_calls} assembly calls, the host "
+                             f"loop makes {HOST_LOOP_BATCH_ASSEMBLY_CALLS}")
+    for name in ("sweep_flankless_pairs", "module_scan_pairs", "module_scan_diag"):
+        if any(c.get(name, 0) <= 0 for c in shards.by_shard):
+            raise AssertionError(f"mesh batch: a shard launched no {name}: {shards.by_shard}")
+    return meter.launches
+
+
+def phase11(main_pairs, batch7):
+    """The mesh paths on the card, (a)-(d); `main_pairs` are the flankless
+    and the flanked main pair as (name, config, reference, query), `batch7`
+    phase 7's flankless batch.  Returns the launches of the three paths that
+    launch kernels."""
+    counts = {"mesh_gap_affine": phase11_gap_affine()}
+    phase11_sp_sweeps(main_pairs)
+    counts["mesh_sp_reentry"] = phase11_sp_reentry(main_pairs[0])
+    counts["mesh_batch"] = phase11_data_axis(batch7)
+    return counts
 
 
 def main():
@@ -2111,7 +2383,7 @@ def main():
         timings.update(fn() or {})
         say(phase, phase_s=time.monotonic() - t0)
     t0 = time.monotonic()
-    r, q, counts, record = phase5()
+    r, q, counts, record, fused_run = phase5()
     timings.update(phase5_shapes(r, q))
     say(5, phase_s=time.monotonic() - t0)
     t0 = time.monotonic()
@@ -2132,8 +2404,13 @@ def main():
     cli_counts = phase9((r, q, record), (fr, fq, flanked_record), chain_cigar)
     say(9, phase_s=time.monotonic() - t0)
     t0 = time.monotonic()
-    route_counts = phase10(r, q, batch7)
+    route_counts = phase10(r, q, record, batch7, fused_run)
     say(10, phase_s=time.monotonic() - t0)
+    t0 = time.monotonic()
+    al = get_alphabet("dna-n")
+    mesh_counts = phase11((("flankless", TemplateSwitchConfig.default(al), r, q),
+                           ("flanked", flanked_default(al), fr, fq)), batch7)
+    say(11, phase_s=time.monotonic() - t0)
     kernels = []
     for name, meta in KERNELS.items():
         if max_err[name] is None or name not in timings:
@@ -2144,7 +2421,8 @@ def main():
                    "flanked_batch": flanked_batch_counts.get(name, 0),
                    "chain": chain_counts.get(name, 0),
                    **{f"cli_{k}": v.get(name, 0) for k, v in cli_counts.items()},
-                   **{k: v.get(name, 0) for k, v in route_counts.items()}}
+                   **{k: v.get(name, 0) for k, v in route_counts.items()},
+                   **{k: v.get(name, 0) for k, v in mesh_counts.items()}}
         # the launches of the newest main path that runs the kernel: the
         # batches for the variants they launch, the single pairs for the rest
         # (a batch's redo pass launches those too)

@@ -431,3 +431,78 @@ def test_module_scan_kernel_refuses_a_finite_skip_from(cuda):
     t = [a.to(cuda) for a in scan_inputs(g, 2, 1, 9, 2)]
     with pytest.raises(ValueError):
         module_scan(*t, fwd=True, allow_sdel=True, skip_from=12345)
+
+
+def _planted(rng, n, m, ts_len=12):
+    """A seeded pair of lengths (n, m) with a planted reverse-complement
+    stretch, as int8 codes of the dna alphabet."""
+    ref = rng.integers(0, 4, size=n).astype("int8")
+    qry = ref[:m].copy()
+    a = int(rng.integers(2, m - ts_len - 2))
+    qry[a : a + ts_len] = (3 - qry[a : a + ts_len])[::-1]
+    return ref, qry
+
+
+@pytest.mark.cuda
+def test_batched_gap_affine_kernel_route_matches_plain_on_card(cuda):
+    """BatchedGapAffine.costs on the card (one launch of the sweep's pair
+    axis) equals its plain copy on the card, on a -1-padded batch; and
+    sharded_step over 4 shards of the card gathers the same costs."""
+    import numpy as np
+
+    from tsalign_tpu_torch.alphabet import get_alphabet
+    from tsalign_tpu_torch.config import TemplateSwitchConfig
+    from tsalign_tpu_torch.parallel.batch import BatchedGapAffine, batched_gap_affine, encode_batch
+    from tsalign_tpu_torch.parallel.mesh import Mesh
+
+    rng = np.random.default_rng(31)
+    al = get_alphabet("dna")
+    pairs = [_planted(rng, int(rng.integers(40, 300)), int(rng.integers(30, 40)))
+             for _ in range(8)]
+    letters = "ACGT"
+    refs = encode_batch(al, ["".join(letters[c] for c in r) for r, _ in pairs])
+    qrys = encode_batch(al, ["".join(letters[c] for c in q) for _, q in pairs], pad_to=60)
+    bg = BatchedGapAffine(TemplateSwitchConfig.default(al), device=cuda)
+    before = _build.launches["sweep_flankless_pairs"]
+    got = bg.costs(refs, qrys)
+    assert _build.launches["sweep_flankless_pairs"] == before + 1
+    want = batched_gap_affine(bg.A, *bg.tables(cuda), torch.from_numpy(refs).to(cuda),
+                              torch.from_numpy(qrys).to(cuda))
+    assert np.array_equal(got, want.cpu().numpy())
+    costs, mean = bg.sharded_step(Mesh(["cuda:0"] * 4, ("data",)), refs, qrys)
+    assert costs.device.type == "cuda" and np.array_equal(costs.cpu().numpy(), got)
+    assert float(mean) == float(torch.from_numpy(got).float().mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flanks", [0, 2])
+def test_sp_sweep_on_four_shards_of_the_card_matches_the_kernel(cuda, flanks):
+    """The sequence-parallel sweeps over 4 shards of cuda:0 equal the sweep
+    kernel's field, from the root seeds and with extra seeds."""
+    import numpy as np
+
+    from tsalign_tpu_torch.alphabet import get_alphabet
+    from tsalign_tpu_torch.config import TemplateSwitchConfig
+    from tsalign_tpu_torch.ops.primary import PrimarySweep
+    from tsalign_tpu_torch.parallel.mesh import Mesh
+    from tsalign_tpu_torch.parallel.sp_sweep import sp_sweep_flanked, sp_sweep_flankless
+
+    rng = np.random.default_rng(32 + flanks)
+    cfg = TemplateSwitchConfig.default(get_alphabet("dna"))
+    cfg.left_flank_length = cfg.right_flank_length = flanks
+    ref, qry = _planted(rng, 150, 133)
+    sweep = PrimarySweep(cfg, ref, qry)
+    F = sweep.F
+    seeds = torch.full((F, 3, len(ref) + 1, len(qry) + 1), DEV_INF, dtype=torch.int32)
+    seeds[flanks, 0, 0, 0] = 0
+    for _ in range(6):
+        seeds[int(rng.integers(0, F)), int(rng.integers(0, 3)), int(rng.integers(0, 151)),
+              int(rng.integers(0, 134))] = int(rng.integers(0, 30))
+    seeds = seeds.to(cuda)
+    want = sweep.sweep(seeds)
+    mesh = Mesh(["cuda:0"] * 4, ("sp",))
+    if F == 1:
+        got = sp_sweep_flankless(sweep, seeds[0], mesh)
+        assert got.device.type == "cuda" and torch.equal(got, want[0])
+    else:
+        assert np.array_equal(sp_sweep_flanked(sweep, seeds, mesh), want.cpu().numpy())

@@ -74,6 +74,10 @@ def test_port_sources_are_found():
             "tsalign_tpu_torch/parallel/__init__.py",
             "tsalign_tpu_torch/parallel/batch_ts.py",
             "tsalign_tpu_torch/parallel/fused_rounds.py",
+            "tsalign_tpu_torch/parallel/mesh.py",
+            "tsalign_tpu_torch/parallel/batch.py",
+            "tsalign_tpu_torch/parallel/sp_sweep.py",
+            "tsalign_tpu_torch/parallel/sp_reentry.py",
             "scripts/torch_port_chain_probe.py"} | {
                 f"tsalign_tpu_torch/chain/{m}.py"
                 for m in ("__init__", "plan", "anchors", "native", "chain", "driver")} | {
@@ -126,6 +130,41 @@ def test_fused_rounds_loop_runs_with_both_packages_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[0]) >= 0
+
+
+def test_mesh_paths_run_with_both_packages_blocked():
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['tsalign_tpu'] = None\n"
+        "import numpy as np, torch\n"
+        "import tsalign_tpu_torch\n"
+        "from tsalign_tpu_torch.alphabet import get_alphabet\n"
+        "from tsalign_tpu_torch.config import TemplateSwitchConfig\n"
+        "from tsalign_tpu_torch.ops.primary import PrimarySweep\n"
+        "from tsalign_tpu_torch.parallel.batch import BatchedGapAffine, encode_batch\n"
+        "from tsalign_tpu_torch.parallel.mesh import Mesh\n"
+        "from tsalign_tpu_torch.parallel.sp_sweep import sp_sweep_flankless\n"
+        "al = get_alphabet('dna-n')\n"
+        "cfg = TemplateSwitchConfig.default(al)\n"
+        "r, q = 'ACGTTGCAAGCTTGACCATGGCA', 'ACGTTGCATTGCAAGTTGACCATGGCA'\n"
+        "mesh = Mesh(['cpu'] * 2, ('data',))\n"
+        "costs, mean = BatchedGapAffine(cfg, device='cpu').sharded_step(\n"
+        "    mesh, encode_batch(al, [r, q]), encode_batch(al, [q, r]))\n"
+        "sweep = PrimarySweep(cfg, al.encode(r), al.encode(q))\n"
+        "seeds = torch.full((1, 3, len(r) + 1, len(q) + 1), 2**30 - 1, dtype=torch.int32)\n"
+        "seeds[0, 0, 0, 0] = 0\n"
+        "M = sp_sweep_flankless(sweep, seeds[0], Mesh(['cpu'] * 3, ('sp',)))\n"
+        "assert torch.equal(M, sweep.sweep(seeds)[0])\n"
+        "recs = tsalign_tpu_torch.align_pairs(cfg, [(r, q), (q, r)], device='cpu', mesh=mesh)\n"
+        "assert not any(m.split('.')[0] in ('jax', 'tsalign_tpu') for m, v in "
+        "sys.modules.items() if v is not None)\n"
+        "print(*[int(c) for c in costs], *[x.result.cost for x in recs])\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    gap_affine, ts = map(list, np.split(np.array(out.stdout.split(), dtype=int), 2))
+    assert gap_affine[0] == gap_affine[1] and ts[0] <= gap_affine[0]
 
 
 def test_chained_mode_runs_with_both_packages_blocked():

@@ -1,3 +1,4 @@
-"""Batched pair alignment on one device (the port's copy of
-``tsalign_tpu/parallel``: ``batch_ts`` only; the mesh-only modules are not
-ported)."""
+"""Batched and multi-device execution: the port's copy of
+``tsalign_tpu/parallel`` (``batch_ts``, ``fused_rounds``, ``batch``,
+``sp_sweep``, ``sp_reentry``), with ``mesh`` in place of ``jax.sharding.Mesh``
+and its collectives."""

@@ -39,9 +39,20 @@ differences:
     CPU backend; otherwise the host loop (`_align_host`).  Its retry chain
     (for Mosaic compile rejections) and its catch-all are not ported: an
     exception in the fused loop propagates;
-  * not ported: the mesh / shard path, the TPU workarounds (``sync_point``,
-    the module kernel's compile-fallback retries, the masked-reduction
-    summary, the bulk transfer of a single pair's kept fields);
+  * a mesh (``parallel/mesh.py``, axis "data"; `align`, `costs`,
+    `align_with_traceback` and `align_pairs` take ``mesh=``) runs the host
+    loop, as in the JAX package (``fused=True`` with a mesh raises
+    ``ValueError``), with the compact route off.  The pair axis is split in
+    contiguous blocks over the shards (``ValueError`` where the shard count
+    does not divide it, as ``jax.device_put`` raises) for the launches only:
+    the batched sweep, the diagonal-mode batch and each kind's chunks run a
+    shard's pairs on the shard's device, and their results are gathered onto
+    `device`, the mesh's first device.  The decisions (the shared budget,
+    the rounds, the stop tests) stay on the one host loop, so a mesh changes
+    no value, round or assembly call, only how the launches split;
+  * not ported: the TPU workarounds (``sync_point``, the module kernel's
+    compile-fallback retries, the masked-reduction summary, the bulk
+    transfer of a single pair's kept fields);
   * kept fields: ``keep_fields=True`` keeps host int64 arrays, "device"
     keeps ``fields.py`` views of each pair's slice of the batched tensors;
   * `align_pairs` takes a `device` and falls back, on ``OverflowError``, to
@@ -79,6 +90,7 @@ from ..ops.primary import PrimarySweep
 from ..ops.primary_sweep import GAP_NONE
 from ..ops.sweep import sweep_flanked, sweep_flankless
 from ..ops.tsm_modules import make_kind_spec
+from .mesh import shard_blocks
 
 
 def _summ_batch(M_b, lr, lq):
@@ -189,9 +201,10 @@ class BatchedTSAligner:
         where the fields live and the kernels run ("cuda" or "cpu").
         `fused`: run the fused rounds loop (True) or the host loop (False);
         None takes the fused loop on a CUDA device and the host loop on the
-        CPU."""
+        CPU; under a mesh the host loop runs, and True raises."""
         self.device = torch.device(device)
         self.fused = self.device.type == "cuda" if fused is None else bool(fused)
+        self._fused_asked = fused
         self.config = config
         self.use_lower_bounds = use_lower_bounds
         self.n_pairs = len(pairs)
@@ -388,7 +401,18 @@ class BatchedTSAligner:
             b *= 2
         return b
 
-    def _build_kind_sets(self, budget: Optional[int]) -> None:
+    def _blocks(self, mesh):
+        """[(slice of the pairs, device)] of the launches: one block on
+        `device` without a mesh, else each shard's contiguous block of pairs
+        over ``mesh["data"]`` on its device."""
+        if mesh is None:
+            return [(slice(None), self.device)]
+        if device_key(mesh.devices[0]) != device_key(self.device):
+            raise ValueError(f"the mesh's first device {mesh.devices[0]} is not the "
+                             f"aligner's device {self.device}")
+        return shard_blocks(mesh, self.n_pairs, "data")
+
+    def _build_kind_sets(self, budget: Optional[int], mesh=None) -> None:
         from ..chain.plan import config_digest
 
         key = (
@@ -406,10 +430,14 @@ class BatchedTSAligner:
             self._build_kind_sets_uncached(budget)
             _memo_put(_BATCH_KINDS_MEMO, key, (self.kind_sets, self._kind_state))
         # The intra-sequence kinds' module fields, on this device: one launch
-        # of the diagonal mode a kind, over every pair.
+        # of the diagonal mode a kind, over every pair (a shard's pairs on its
+        # device under a mesh).
         for km0, kms, _ in self._kind_state:
-            if km0.spec.same_seq and device_key(self.device) not in km0._b_pre:
-                _same_module_batch(kms, self.device)
+            if not km0.spec.same_seq:
+                continue
+            for sl, dev in self._blocks(mesh):
+                if any(device_key(dev) not in km._b_pre for km in kms[sl]):
+                    _same_module_batch(kms[sl], dev)
 
     def _build_kind_sets_uncached(self, budget: Optional[int]) -> None:
         self.sdel_budget = budget
@@ -470,9 +498,10 @@ class BatchedTSAligner:
             ]
             self._kind_state.append((km0, kms, e_bases))
 
-    def _reentry_batch(self, A_stack: np.ndarray) -> torch.Tensor:
+    def _reentry_batch(self, A_stack: np.ndarray, mesh=None) -> torch.Tensor:
         """Batched all-kinds reentry cells from the stacked (pruned) entry
-        fields."""
+        fields; under a mesh each kind takes the chunked route, a shard's
+        pairs on its device."""
         B = self.n_pairs
         self._reentries += 1
         R_dev = full_inf((B, self.nr + 1, self.nq + 1), self.device)
@@ -516,7 +545,7 @@ class BatchedTSAligner:
             while Kb < max(int(n_live.max()), 1):
                 Kb *= 2
             live_chunks_max = int((eb_b >= 0).sum(axis=1).max())
-            if _engine._COMPACT_ROUTE and 2 * Kb <= live_chunks_max * C:
+            if mesh is None and _engine._COMPACT_ROUTE and 2 * Kb <= live_chunks_max * C:
                 e_sel_b = np.zeros((B, Kb), np.int64)
                 for i in range(B):
                     idx = np.nonzero(col_live[i])[0]
@@ -527,7 +556,10 @@ class BatchedTSAligner:
                 log.update(route="compact", Kb=Kb,
                            e_sel=tuple(tuple(int(e) for e in row) for row in e_sel_b))
             else:
-                slabs = kind_all_chunks(kms, a_dev[spec.pk], eb_b, PAD, width)
+                slabs = []
+                for sl, dev in self._blocks(mesh):
+                    slabs += [None if x is None else x.to(self.device) for x in kind_all_chunks(
+                        kms[sl], a_dev[spec.pk][sl].to(dev), eb_b[sl], PAD, width)]
                 log.update(route="chunked", chunks=int((eb_b >= 0).sum()))
             self.route_log.append(log)
             for i, Rk_pad in enumerate(slabs):
@@ -571,9 +603,15 @@ class BatchedTSAligner:
             ] = 0
         return torch.from_numpy(to_device_costs(seeds0)).to(self.device)
 
-    def align(self) -> List[EngineResult]:
+    def align(self, mesh=None) -> List[EngineResult]:
         """Per-pair engine results (exact optimum each), batch-lockstep: the
-        fused rounds loop when `fused`, else the host rounds loop."""
+        fused rounds loop when `fused`, else the host rounds loop; under a
+        `mesh` (``parallel/mesh.py``, axis "data") the host rounds loop with
+        the pairs' launches split over its shards."""
+        if mesh is not None:
+            if self._fused_asked:
+                raise ValueError("fused=True takes no mesh: a mesh runs the host rounds loop")
+            return self._align_host(mesh)
         return self._align_fused() if self.fused else self._align_host()
 
     def _align_fused(self) -> List[EngineResult]:
@@ -649,19 +687,22 @@ class BatchedTSAligner:
                     from_device_costs(R_all[r][i].cpu().numpy())
                     if self.keep_fields is True else FieldView2(R_all[r][i]))
 
-    def _align_host(self) -> List[EngineResult]:
-        """The host rounds loop (``_align_host``)."""
+    def _align_host(self, mesh=None) -> List[EngineResult]:
+        """The host rounds loop (``_align_host``), its launches split over
+        the shards of `mesh` when one is given."""
         B = self.n_pairs
+        blocks = self._blocks(mesh)
 
         arrays_b = self._stack_sweep_arrays()
 
         def sweep_v(seeds):
-            return _sweep_batch(
-                arrays_b,
-                seeds,
+            parts = [_sweep_batch(
+                tuple(a[sl].to(dev) for a in arrays_b),
+                seeds[sl].to(dev),
                 L=self.config.left_flank_length,
                 R=self.config.right_flank_length,
-            )
+            ) for sl, dev in blocks]
+            return parts[0] if len(parts) == 1 else torch.cat([p.to(self.device) for p in parts])
 
         seeds = self._root_seeds()
 
@@ -749,7 +790,7 @@ class BatchedTSAligner:
                 break
             if self.kind_sets is None:
                 logger.debug("batch phase: build_kind_sets (round %d)", k)
-                self._build_kind_sets(self._derive_budget(best))
+                self._build_kind_sets(self._derive_budget(best), mesh)
             for i in range(B):
                 if A_cur[i] is None:
                     if done[i]:
@@ -777,7 +818,7 @@ class BatchedTSAligner:
                     A_launched[i] = np.minimum(A_launched[i], a)
             A_stack = np.stack(A_delta)
             logger.debug("batch phase: reentry (round %d)", k)
-            R_new = self._reentry_batch(A_stack)
+            R_new = self._reentry_batch(A_stack, mesh)
             if R_acc is None:
                 R_acc, unchanged = R_new, False
             else:
@@ -825,13 +866,13 @@ class BatchedTSAligner:
             results[i].cost = best[i]
         return results
 
-    def costs(self) -> np.ndarray:
+    def costs(self, mesh=None) -> np.ndarray:
         """Optimal TS alignment cost per pair (int64, INF when unreachable)."""
         return np.asarray(
-            [r.cost for r in self.align()], dtype=np.int64
+            [r.cost for r in self.align(mesh=mesh)], dtype=np.int64
         )
 
-    def align_with_traceback(self):
+    def align_with_traceback(self, mesh=None):
         """[(cost, Alignment)] per pair: batched rounds on device, host
         traceback per pair over the kept fields (traceback.py)."""
         from ..alignment import Alignment
@@ -842,7 +883,7 @@ class BatchedTSAligner:
             # stay on the device and each pair's traceback fetches only the
             # row blocks its path touches (fields.py).
             self.keep_fields = "device"
-        results = self.align()
+        results = self.align(mesh=mesh)
         self.last_results = results  # per-pair rounds (K-soundness guard)
         out = []
         for i, res in enumerate(results):
@@ -876,6 +917,7 @@ def align_pairs(
     device,
     on_batch=None,
     fused: Optional[bool] = None,
+    mesh=None,
 ):
     """Full batched record pipeline: align many (reference, query) string
     pairs in one batch and return a list of AlignmentResult records (the
@@ -884,7 +926,9 @@ def align_pairs(
     `on_batch(indices, aligner)`, when given, is called after each batch's
     traceback with the pairs' input indices and its BatchedTSAligner (whose
     ``last_results`` hold each pair's rounds).  `fused` picks the rounds
-    loop of the batches and of the single-pair fallbacks (`BatchedTSAligner`).
+    loop of the batches and of the single-pair fallbacks (`BatchedTSAligner`);
+    `mesh` (axis "data", its first device `device`) splits each batch's
+    launches over its shards.
 
     Falls back to the exact single-pair path per pair when the K-scaled
     algebra would overflow the device int32 domain.
@@ -920,6 +964,7 @@ def align_pairs(
                     chunk=chunk,
                     device=device,
                     fused=fused,
+                    mesh=mesh,
                     on_batch=None if on_batch is None else (
                         lambda idx, bt, part=part: on_batch([part[j] for j in idx], bt)),
                 )
@@ -948,7 +993,7 @@ def align_pairs(
     try:
         bt = BatchedTSAligner(cfg_run, enc, chunk=chunk, keep_fields="device",
                               device=device, fused=fused)
-        traced = bt.align_with_traceback()
+        traced = bt.align_with_traceback(mesh=mesh)
         if on_batch is not None:
             on_batch(list(range(len(pairs))), bt)
     except OverflowError:
