@@ -7,9 +7,10 @@ Phases, each ending with a line of its wall time (phase_s):
   1. the card (nvidia-smi name and power limit), torch/CUDA versions, the
      build of the CUDA kernels from tsalign_tpu_torch/csrc, what ptxas
      and cuobjdump say of the module scan (registers and spills of every
-     instantiation, DPX instructions in its SASS) and ptxas of the sweep's
-     instantiations, and the latency of one dependent DPX instruction (a
-     one-thread loop in csrc/sweep.cu) with the SM clock it ran at;
+     instantiation, DPX instructions in its SASS), ptxas of the sweep's
+     instantiations and of the assembly kernel, and the latency of one
+     dependent DPX instruction (a one-thread loop in csrc/sweep.cu) with the
+     SM clock it ran at;
   2. each kernel against its plain torch version on the card (torch.equal,
      tolerance 0) on seeded inputs holding DEV_INF and DEV_INF - 1, timed
      with CUDA events; the sweeps in both seed layouts, the flanked one for
@@ -26,6 +27,15 @@ Phases, each ending with a line of its wall time (phase_s):
      pair axes at phase 7's shapes (eight sweeps of 513 x 513 at F = 1 and
      5 on scratch buffers that hold noise, eight module-scan chunks of
      NB 513 / C 64 / W 613 / L 512), each pair also against its own launch;
+     the module scan's global-memory variant at W = 6,273, A = 6 (both
+     modes and the diagonal mode); the assembly kernel (csrc/assembly.cu)
+     against assembly_torch and its fold (torch.equal) on every kind of a
+     120 x 100 pair under the default and under negative costs, chunked and
+     compact destinations, slabs from DEV_INF and from seeded values, B
+     holding negative values, DEV_INF, DEV_INF - 1 and [2^29, DEV_INF);
+     then its pair axis at phase 7's shapes (eight poison-padded pairs in
+     the 512 bucket, each with its own real anti length), each pair also
+     against its own launch;
   3. three small planted-TSM pairs under the default configuration and three
      under the flanked default: the port's cost equals the Dijkstra oracle's
      (tsalign_tpu_torch.oracle);
@@ -34,13 +44,15 @@ Phases, each ending with a line of its wall time (phase_s):
      and CIGAR equal the JAX package's (recorded on the CPU);
   5. the flankless main path at a real size: a seeded 500 x 420 pair under
      the default configuration through tsalign_tpu_torch.align(...,
-     device="cuda"); the flankless sweep and the module scan must launch, and
-     the alignment must reprice to the cost; then both kernels against their
-     plain versions at the shapes that path launches: the root sweep, and two
-     chunks of every cross kind in both directions, the module scan in both
-     modes with each mode's time and bound, the share of (problem, level)
-     pairs the skipping mode has to run and the share of problems dead at
-     level 0;
+     device="cuda"); the flankless sweep, the module scan and the assembly
+     must launch, and the alignment must reprice to the cost; then the
+     kernels against their plain versions at the shapes that path launches:
+     the root sweep, and two chunks of every cross kind in both directions,
+     the module scan in both modes with each mode's time and bound, the share
+     of (problem, level) pairs the skipping mode has to run and the share of
+     problems dead at level 0, and the assembly of every cross kind at its
+     live chunk with the most finite entry cells, on the B the module scan
+     gives it;
   6. the flanked main path: the same pair with a substitution on either side
      of the planted stretch, under the flanked default (two flank layers on
      either side, F = 5, cheaper flank tables), through
@@ -143,7 +155,11 @@ and {"ok": true, "device": {...}}.
 In the kernels' record, bound_ms is the least time the card could take for
 the compared call: the larger of its bytes (every input read once, the
 output written once) over 3.35 TB/s and its integer min/add operations over
-33.5e12 a second.  For the sweeps a third time is taken beside the two, the
+33.5e12 a second.  For the assembly the bytes are each B read once and each
+pair's slab window read and written once, and the operations each output's
+window minima at a running minimum's cost (van Herk / Gil-Werman: about
+three a window, whatever its width; fewer for a window narrower than four)
+and the saturating adds and minima that combine them.  For the sweeps a third time is taken beside the two, the
 dependency chain: cell (row, layer, column) needs its left neighbour, so the
 longest path runs through n_rows + Wq + F - 2 cells, each two dependent
 integer instructions (the chain's clamped add and min in one DPX instruction,
@@ -158,7 +174,7 @@ instruction does (an add and a min in VIADDMNMX, two mins in VIMNMX3).  Before
 the module scan used DPX the bound took one operation an instruction
 (16.75e12 a second); the kernel now runs below that figure, so it was no
 bound.  library_ms is null: no single PyTorch call computes a (min,+)
-wavefront or the module scan.
+wavefront, the module scan or the assembly's windowed minima.
 """
 
 from __future__ import annotations
@@ -166,6 +182,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import dataclasses
 import io
 import json
 import os
@@ -187,10 +204,11 @@ from tsalign_tpu_torch import _build
 from tsalign_tpu_torch.alignment import Alignment, TemplateSwitchEntrance, TemplateSwitchExit
 from tsalign_tpu_torch.alphabet import get_alphabet
 from tsalign_tpu_torch.config import TemplateSwitchConfig
-from tsalign_tpu_torch.costs import INF, GapAffineCostTable
+from tsalign_tpu_torch.costs import INF, CostFunction, GapAffineCostTable
 from tsalign_tpu_torch.engine import TorchAligner, next_seeds
 from tsalign_tpu_torch.ops.common import (DEV_INF, DEV_INF_THRESH, dead_state_threshold,
                                           equal_mod_inf, sat_add)
+from tsalign_tpu_torch.ops.assembly import assembly_fold, assembly_fold_torch
 from tsalign_tpu_torch.ops.module_scan import launch_plan, module_scan, module_scan_diag
 from tsalign_tpu_torch.ops.modules import module_scan_torch
 from tsalign_tpu_torch.ops.primary_sweep import GAP_NONE
@@ -201,6 +219,11 @@ from tsalign_tpu_torch.oracle import OracleAligner
 from tsalign_tpu_torch.parallel.batch_ts import align_pairs
 from tsalign_tpu_torch.pricing import price_alignment
 from tsalign_tpu_torch.result import AlignmentResult
+
+# the seeded assembly cases the port's tests share (tests/torch_cases.py)
+sys.path.insert(1, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+import torch_cases  # noqa: E402
+from torch_cases import assembly_inputs, assembly_kinds, assembly_slab, slab_width  # noqa: E402
 
 DEV = "cuda"
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
@@ -272,6 +295,25 @@ KERNELS = {
         "route": "cuda",
         "source": "tsalign_tpu_torch/csrc/sweep.cu",
         "replaces": "tsalign_tpu/ops/pallas_sweep.py:392",
+    },
+    # the module scan's global-memory variant (tables past a block's shared
+    # memory), and the reentry assembly with its fold (the XLA program
+    # _assembly of the JAX package's kind chunks, no pallas_call) alone and
+    # with a pair axis
+    "module_scan_gmem": {
+        "route": "cuda",
+        "source": "tsalign_tpu_torch/csrc/module_scan_gmem.cu",
+        "replaces": "tsalign_tpu/ops/pallas_module.py:142",
+    },
+    "assembly": {
+        "route": "cuda",
+        "source": "tsalign_tpu_torch/csrc/assembly.cu",
+        "replaces": "tsalign_tpu/ops/jax_modules.py:509",
+    },
+    "assembly_pairs": {
+        "route": "cuda",
+        "source": "tsalign_tpu_torch/csrc/assembly.cu",
+        "replaces": "tsalign_tpu/ops/jax_modules.py:509",
     },
 }
 max_err = {name: None for name in KERNELS}
@@ -345,12 +387,9 @@ def compare(name, got, want, what, mod_inf=False):
 
 
 def rand_costs(gen, shape, lo, hi, p_inf=0.0, p_inf1=0.0):
-    """Seeded int32 costs in [lo, hi) with DEV_INF / DEV_INF - 1 entries."""
-    x = torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32)
-    u = torch.rand(shape, generator=gen)
-    x[u < p_inf] = DEV_INF
-    x[(u >= p_inf) & (u < p_inf + p_inf1)] = DEV_INF - 1
-    return x.to(DEV)
+    """Seeded int32 costs in [lo, hi) with DEV_INF / DEV_INF - 1 entries, on
+    the card."""
+    return torch_cases.rand_costs(gen, shape, lo, hi, p_inf, p_inf1).to(DEV)
 
 
 def sweep_inputs(gen, n_rows, Wq):
@@ -504,11 +543,12 @@ def module_scan_build_report():
     bytes of each instantiation (by K, the offsets a lane) from ptxas, and
     how often each DPX instruction stands in its SASS (cuobjdump)."""
     per_k = {}
-    for r in _build.resources("module_scan"):
-        # K, "_wide" for several warps a problem, "_diag" for the diagonal mode
-        k = re.search(r"ILi(\d+)ELb([01])ELb([01])E", r["name"])
+    for r in _build.resources("module_scan") + _build.resources("module_scan_gmem"):
+        # K, "_wide" for several warps a problem, "_diag" for the diagonal mode,
+        # "_gmem" for the tables in device memory
+        k = re.search(r"ILi(\d+)ELb([01])ELb([01])ELb([01])E", r["name"])
         per_k[f"{k.group(1)}{'_wide' * int(k.group(2))}{'_diag' * int(k.group(3))}"
-              if k else r["name"]] = [
+              f"{'_gmem' * int(k.group(4))}" if k else r["name"]] = [
             r["registers"], r["stack"], r["spill_stores"] + r["spill_loads"]]
     say(1, module_scan_registers_stack_spill_by_K=per_k,
         most_registers=max(v[0] for v in per_k.values()),
@@ -565,6 +605,9 @@ def phase1():
         devices=torch.cuda.device_count())
     module_scan_build_report()
     sweep_build_report()
+    (r,) = _build.resources("assembly")
+    say(1, assembly_registers_stack_spill=[r["registers"], r["stack"],
+                                           r["spill_stores"] + r["spill_loads"]])
     measure_dpx_latency()
 
 
@@ -659,7 +702,9 @@ def phase2():
     gen = torch.Generator().manual_seed(2)
     phase2_sweeps(gen)
     phase2_scan(gen)
-    return phase2_variants(gen)
+    timings = phase2_variants(gen)
+    timings.update(phase2_assembly(gen))
+    return timings
 
 
 def phase2_sweeps(gen):
@@ -749,6 +794,38 @@ def phase2_variants(gen):
                 skipping_ms=cuda_ms(lambda: module_scan(*args, **skip), 5), plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
             timings["module_scan_wide"] = (ms, plain_ms, bound_ms, bound_by)
+    # the global-memory variant: W = 6,273 at A = 6 (the tables exceed a
+    # block's shared memory), both modes, and the diagonal mode
+    W, A = 6273, 6
+    if not launch_plan(W, A)[4] or not launch_plan(W, A, diag=True)[4]:
+        raise AssertionError("module_scan: W = 6,273 at A = 6 does not take the gmem variant")
+    for fwd in (True, False):
+        args = module_inputs(gen, 13, 3, W, 9, A)
+        kw = dict(fwd=fwd, allow_sdel=True)
+        skip = dict(kw, skip_from=scan_skip_from(args, True))
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        want = module_scan_torch(*args, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.monotonic() - t0) * 1e3
+        before = _build.launches["module_scan_gmem"]
+        what = f"gmem fwd={fwd} NB=13 C=3 W={W} L=9"
+        compare("module_scan_gmem", module_scan(*args, **kw), want, what + " exact")
+        compare("module_scan_gmem", module_scan(*args, **skip), want, what + " skipping",
+                mod_inf=True)
+        seedT, *rest = module_inputs(gen, 11, 11, W, 10, A)
+        dargs = (seedT[torch.arange(11), torch.arange(11)].contiguous(), *rest)
+        compare("module_scan_gmem", module_scan_diag(*dargs, **kw),
+                module_scan_torch(*dargs, **kw), f"gmem diag fwd={fwd} W={W}")
+        if _build.launches["module_scan_gmem"] != before + 3:
+            raise AssertionError("module_scan: the gmem variant was not launched")
+        ms = cuda_ms(lambda: module_scan(*args, **kw), 5)
+        bound_ms, bound_by, _, _ = module_scan_bound(*args, allow_sdel=True)
+        say(2, kernel="module_scan_gmem", NB=13, C=3, W=W, L=9, A=A, fwd=fwd,
+            warps_a_problem=launch_plan(W, A)[1], equal=True, equal_mod_inf_skipping=True,
+            diag_equal=True, ms=ms, skipping_ms=cuda_ms(lambda: module_scan(*args, **skip), 5),
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        timings.setdefault("module_scan_gmem", (ms, plain_ms, bound_ms, bound_by))
     # the main pair's same-sequence kinds: 501 problems of 601 (forward) and
     # 501 (reverse) offsets through 500 levels
     for fwd, W in ((True, 601), (False, 501)):
@@ -830,6 +907,143 @@ def phase2_variants(gen):
         equal_mod_inf_skipping=True, ms=ms, exact_ms=exact_ms, single_launches_ms=single_ms,
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, live_share=live)
     timings["module_scan_pairs"] = (ms, plain_ms, bound_ms, bound_by)
+    return timings
+
+
+# Integer operations of the assembly a (row, column, output): a window
+# minimum at a running minimum's cost (van Herk / Gil-Werman: a prefix and a
+# suffix minimum an element and one minimum an output, whatever the width; a
+# window of w < 4 offsets needs w - 1), a segment's saturating add of its
+# cost (add and clamp) and minimum into U, then the ldiff = 0 term's
+# saturating add and minimum, the anti term's saturating add and the fold's
+# minimum.
+ASSEMBLY_OPS_PER_WINDOW, ASSEMBLY_OPS_PER_SEGMENT, ASSEMBLY_OPS_PER_OUTPUT = 3, 3, 6
+
+
+def assembly_bound(Bs, A_chunks, kms, spans):
+    """(bound_ms, bound_by) of one assembly_fold call.  Bytes: every B and,
+    for a same-sequence kind, every entry chunk read once, each pair's slab
+    window read and written once, its length and anti tables.  Operations:
+    each output's window minimum in each segment at a running minimum's cost
+    (ASSEMBLY_OPS_PER_WINDOW, fewer for the narrow windows these rows take),
+    and the terms that combine them."""
+    n_bytes = ops = 0
+    for B, A, km, span in zip(Bs, A_chunks, kms, spans):
+        n_rows, C = A.shape
+        n_bytes += (nbytes(B) + (nbytes(A) if km.same_seq else 0) + 2 * 4 * n_rows * span
+                    + 4 * (km.L + 1 + km.S))
+        ah = km.ah_real if km.padded else km.anti_hi
+        p2 = np.arange(n_rows)
+        minima = 0  # a (column, output)'s window operations over the rows
+        for plan in km.plans:
+            w = plan.b - plan.a + 1
+            if plan.positive:
+                lo, hi = np.clip(p2 - (ah - plan.b), 0, w), w - 1
+            else:
+                lo, hi = 0, np.clip(p2 + plan.b - km.anti_lo, -1, w - 1)
+            minima += int(np.clip(hi - lo, 0, ASSEMBLY_OPS_PER_WINDOW).sum())
+        ops += C * km.S * (minima + n_rows * (ASSEMBLY_OPS_PER_SEGMENT * len(km.plans)
+                                              + ASSEMBLY_OPS_PER_OUTPUT))
+    return bound(n_bytes, ops)
+
+
+def check_assembly(name, Bs, As, kms, ts, slabs, base, dest=None, what=""):
+    """The kernel's fold into copies of `slabs` against the plain
+    version's (torch.equal); returns the plain version's ms and the
+    kernel's slabs."""
+    want = [s.clone() for s in slabs]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    assembly_fold_torch(Bs, As, kms, ts, want, base, dest)
+    torch.cuda.synchronize()
+    plain_ms = (time.monotonic() - t0) * 1e3
+    got = [s.clone() for s in slabs]
+    assembly_fold(Bs, As, kms, ts, got, base, dest)
+    for z in range(len(kms)):
+        compare(name, got[z], want[z], f"{what} pair {z}")
+    return plain_ms, got
+
+
+def phase2_assembly(gen):
+    """The assembly kernel against its plain version (torch.equal): every
+    kind of a 120 x 100 pair under the default and under negative costs,
+    chunked and compact destinations, slabs from DEV_INF and from seeded
+    values; then its pair axis at phase 7's shapes, eight poison-padded pairs
+    of 380-500 bp in the 512 bucket (a cross and a same-sequence kind, both
+    destinations), each pair also against its own launch."""
+    rng = np.random.default_rng(2)
+    for cname, cfg in (("default", TemplateSwitchConfig.default(get_alphabet("dna-n"))),
+                       ("negative", dataclasses.replace(
+                           TemplateSwitchConfig.default(get_alphabet("dna-n")),
+                           **torch_cases.negative_costs(CostFunction, INF)))):
+        ref = rng.integers(0, 4, size=120).astype(np.int8)
+        qry = rng.integers(0, 4, size=100).astype(np.int8)
+        kinds = assembly_kinds(cfg, ref, qry, 64)
+        if {(km.same_seq, km.dk) for km in kinds} != {(a, b) for a in (0, 1) for b in (0, 1)}:
+            raise AssertionError(f"assembly {cname}: kinds {[km.spec for km in kinds]}")
+        for km in kinds:
+            t = km.tables(DEV)
+            base = max(0, -km.s_lo) + km.s_lo
+            for compact in (False, True):
+                dest = (rng.integers(0, km.spec.n_anti + 1, size=(1, km.chunk)) if compact
+                        else None)
+                for seeded in (False, True):
+                    B, A = assembly_inputs(gen, km, DEV)
+                    slab = assembly_slab(gen, km, seeded, DEV)
+                    check_assembly("assembly", [B], [A], [km], [t], [slab],
+                                   base + (0 if compact else 1), dest,
+                                   f"{cname} kind {[km.spec.pk, km.spec.sk, km.dk]} "
+                                   f"compact={compact} seeded={seeded}")
+        say(2, kernel="assembly", config=cname, pair=[120, 100], kinds=len(kinds), equal=True)
+    al = get_alphabet("dna-n")
+    cfg = TemplateSwitchConfig.default(al)
+    pairs = batch_pairs()
+    sets = []
+    for r, q in pairs:
+        ref = np.full(512, al.size, dtype=np.int8)
+        qry = np.full(512, al.size, dtype=np.int8)
+        ref[: len(r)] = al.encode(r)
+        qry[: len(q)] = al.encode(q)
+        sets.append(assembly_kinds(cfg, ref, qry, 64, real=(len(r), len(q))))
+    timings = {}
+    for kms in zip(*sets):
+        kms = list(kms)
+        km0 = kms[0]
+        if km0.same_seq and km0.dk == 0 or not km0.same_seq and km0.spec.pk == 1:
+            continue  # a cross kind (query side) and a same-sequence kind, both directions
+        P = len(kms)
+        ts = [km.tables(DEV) for km in kms]
+        ins = [assembly_inputs(gen, km, DEV) for km in kms]
+        B_all = torch.stack([B for B, _ in ins], dim=1)  # views, as the module scan's
+        Bs = [B_all[:, z] for z in range(P)]
+        As = [A for _, A in ins]
+        base = max(0, -km0.s_lo) + km0.s_lo
+        kind = [km0.spec.pk, km0.spec.sk, km0.dk]
+        for compact in (False, True):
+            dest = (rng.integers(0, km0.spec.n_anti + 1, size=(P, km0.chunk)) if compact
+                    else None)
+            slabs = [assembly_slab(gen, km, True, DEV) for km in kms]
+            plain_ms, got = check_assembly("assembly_pairs", Bs, As, kms, ts, slabs, base,
+                                           dest, f"512 bucket kind {kind} compact={compact}")
+            for z in range(P):
+                alone = slabs[z].clone()
+                assembly_fold([Bs[z]], [As[z]], [kms[z]], [ts[z]], [alone], base,
+                              None if dest is None else dest[z : z + 1])
+                compare("assembly_pairs", got[z], alone, f"512 bucket pair {z} alone")
+            if compact:
+                continue
+            ms = cuda_ms(lambda: assembly_fold(Bs, As, kms, ts, slabs, base), 10)
+            single_ms = cuda_ms(lambda: [assembly_fold([Bs[z]], [As[z]], [kms[z]], [ts[z]],
+                                                       [slabs[z]], base) for z in range(P)], 3)
+            spans = [km0.chunk + km0.S - 1] * P
+            bound_ms, bound_by = assembly_bound(Bs, As, kms, spans)
+            say(2, kernel="assembly_pairs", pairs=P, kind=kind, n_rows=km0.n_p + 1,
+                C=km0.chunk, L=km0.L, S=km0.S, segments=len(km0.plans),
+                ah_real=[km.ah_real for km in kms], equal=True, ms=ms,
+                single_launches_ms=single_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+            if not km0.same_seq:
+                timings["assembly_pairs"] = (ms, plain_ms, bound_ms, bound_by)
     return timings
 
 
@@ -1154,7 +1368,7 @@ def phase5():
     priced = price_alignment(cfg, al.encode(r), al.encode(q), res.result.alignment)
     if priced != cost:
         raise AssertionError(f"main pair: alignment reprices to {priced}, reported {cost}")
-    for name in ("sweep_flankless", "module_scan"):
+    for name in ("sweep_flankless", "module_scan", "assembly"):
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"main pair: kernel {name} was not launched")
     if counts.get("sweep_flanked", 0) != 0:
@@ -1228,6 +1442,45 @@ def phase5_shapes(r, q):
             exact_ms=exact_ms, exact_bound_ms=exact_bound_ms, exact_bound_by=exact_by,
             ms=ms, bound_ms=bound_ms, bound_by=bound_by, live_share=live,
             dead_at_level_0_share=dead0, plain_ms=plain_ms)
+    timings.update(main_pair_assembly(eng, root))
+    return timings
+
+
+def main_pair_assembly(eng, root):
+    """The assembly kernel against its plain version at the main path's
+    shapes: for every active cross kind of the first reentry round, the
+    live chunk with the most finite entry cells, on the B that the engine's
+    module scan (the skipping mode) gives it, folded into the kind's slab.
+    Returns the kernel and plain times and the bound of the first kind."""
+    E, best, _ = eng._sweep_summary(root, True)
+    A = eng._pruned_entry_cells(E, best)
+    timings = {}
+    for km in (k for k in eng._build_kinds(eng._sdel_budget(best)) if not k.same_seq):
+        A_np = np.ascontiguousarray(A if km.spec.pk == 0 else A.T)
+        C, n_e = km.chunk, km.spec.n_anti + 1
+        finite = (A_np < DEV_INF_THRESH).sum(axis=0)
+        e_base = max((min(e0, n_e - C) for e0 in range(0, n_e, C)),
+                     key=lambda b: int(finite[b : b + C].sum()))
+        sl = slice(e_base, e_base + C)
+        A_chunk = torch.from_numpy(A_np).to(DEV)[:, sl]
+        t = km.tables(DEV)
+        seedT = sat_add(A_chunk[:, :, None], t["seed"][sl][None, :, :]).contiguous()
+        B = module_scan(seedT, t["lut"][:, sl].contiguous(), t["sdo"][sl].contiguous(),
+                        t["sde"][sl].contiguous(), t["pchar_l"], t["pmask_l"], t["io_l"],
+                        t["ie_l"], fwd=km.dk == 0, allow_sdel=km.allow_sdel,
+                        skip_from=km.skip_from)
+        base = max(0, -km.s_lo) + e_base + km.s_lo
+        slab = torch.full((km.n_p + 1, slab_width(km)), DEV_INF, dtype=torch.int32, device=DEV)
+        kind = [km.spec.pk, km.spec.sk, km.dk]
+        plain_ms, _ = check_assembly("assembly", [B], [A_chunk], [km], [t], [slab], base,
+                                     what=f"main pair kind {kind} chunk {e_base}")
+        ms = cuda_ms(lambda: assembly_fold([B], [A_chunk], [km], [t], [slab], base), 20)
+        bound_ms, bound_by = assembly_bound([B], [A_chunk], [km], [C + km.S - 1])
+        timings.setdefault("assembly", (ms, plain_ms, bound_ms, bound_by))
+        say(5, kernel="assembly", kind=kind, e_base=e_base,
+            finite_entry_cells=int(finite[sl].sum()), n_rows=km.n_p + 1, C=C, L=km.L,
+            S=km.S, segments=len(km.plans), equal=True, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by)
     return timings
 
 
@@ -1280,7 +1533,7 @@ def phase6():
     priced, flank_ops = reprice(cfg, al.encode(r), al.encode(q), res.result.alignment)
     if priced != cost:
         raise AssertionError(f"flanked main pair: alignment reprices to {priced}, reported {cost}")
-    for name in ("sweep_flanked", "module_scan"):
+    for name in ("sweep_flanked", "module_scan", "assembly"):
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"flanked main pair: kernel {name} was not launched")
     if counts.get("sweep_flankless", 0) != 0:
@@ -1400,7 +1653,7 @@ def phase7_batch(flanked):
                                  f"reported {cost}")
         costs.append(cost)
     names = ["sweep_flanked_pairs" if flanked else "sweep_flankless_pairs", "module_scan_pairs",
-             "module_scan_diag"]
+             "module_scan_diag", "assembly_pairs"]
     for name in names:
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"batch flanked={flanked}: kernel {name} was not launched")
@@ -1479,7 +1732,8 @@ def phase8_chain():
     entrances = sum(1 for _, t in res.alignment.entries if isinstance(t, TemplateSwitchEntrance))
     if entrances != planted:
         raise AssertionError(f"chain: {entrances} template switches, {planted} planted")
-    for name in ("sweep_flankless_pairs", "module_scan_pairs", "module_scan_diag"):
+    for name in ("sweep_flankless_pairs", "module_scan_pairs", "module_scan_diag",
+                 "assembly_pairs"):
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"chain: kernel {name} was not launched")
     if res.numpy_fallbacks:
@@ -1760,11 +2014,13 @@ def phase9(main_pair, flanked_pair, chain_cigar):
 
 class RouteMeter:
     """What one run through the rounds loop did: every engine pass (its
-    rounds and route log), the assembly calls, the launches (counts set to 0
-    on entry) and the kernels' device ms by CUDA events."""
+    rounds and route log), the assembly calls (a pair's assembly of a chunk
+    each, as many as the assembly kernel's launches carry pairs), the
+    launches (counts set to 0 on entry) and the kernels' device ms by CUDA
+    events."""
 
     def __enter__(self):
-        from tsalign_tpu_torch.ops import modules
+        from tsalign_tpu_torch.ops import assembly
 
         self.engines, self.assembly_calls = [], 0
         self._undo = []
@@ -1781,8 +2037,10 @@ class RouteMeter:
             self._undo.append((owner, attr, inner))
 
         wrap(TorchAligner, "align", lambda a, out: self.engines.append((a[0], out.rounds)))
-        wrap(modules, "assembly_torch",
-             lambda a, out: setattr(self, "assembly_calls", self.assembly_calls + 1))
+        # a pair's assembly of a chunk is one call, as before the kernel's
+        # pair axis (a launch takes the chunk's live pairs)
+        wrap(assembly, "assembly_fold",
+             lambda a, out: setattr(self, "assembly_calls", self.assembly_calls + len(a[2])))
         _build.launches.clear()
         _build.kernel_events = []
         torch.cuda.synchronize()
@@ -1807,7 +2065,9 @@ class RouteMeter:
             rounds=[r for _, r in self.engines],
             module_scan_launches={k: v for k, v in self.launches.items()
                                   if k.startswith("module_scan")},
-            assembly_calls=self.assembly_calls, compact_launches=len(compact),
+            assembly_calls=self.assembly_calls,
+            assembly_launches=self.launches.get("assembly", 0)
+            + self.launches.get("assembly_pairs", 0), compact_launches=len(compact),
             chunked_launches=sum(1 for e in log if e["route"] == "chunked"),
             compact_mean_live_cols=(sum(len(e["e_live"]) for e in compact) / len(compact)
                                     if compact else None),
@@ -2430,7 +2690,7 @@ def main():
         order = ("flanked_batch", "batch", "flanked", "flankless") if batched else (
             "flanked", "flankless")
         launches = next((by_path[k] for k in order if by_path[k]), 0)
-        if launches <= 0 and name != "module_scan_wide":
+        if launches <= 0 and name not in ("module_scan_wide", "module_scan_gmem"):
             raise AssertionError(f"{name}: launched on no main path")
         kernels.append(dict(name=name, **meta, launches=launches, launches_by_path=by_path,
                             max_abs_err=max_err[name], ms=ms, plain_ms=plain_ms,

@@ -20,7 +20,8 @@ power limit.
     bound, the live share and the share of problems dead at level 0.
   * With `--old-source FILE`: FILE is the module-scan source of an earlier
     commit (`git show <commit>:tsalign_tpu_torch/csrc/module_scan.cu`), whose
-    C entry point takes no skip_from.  It is built beside the package's own,
+    C entry point takes no skip_from (where that source includes
+    module_scan.cuh, the commit's header goes beside FILE).  It is built beside the package's own,
     held against the plain version, and timed in turns with the new kernel
     (old, new, new, old) on the same inputs in the same process.
   * With `--define NAME=VALUE` (repeatable): the package's own source built
@@ -33,7 +34,8 @@ power limit.
     flankless and the flanked 500 x 420 pair) on the host rounds loop
     (`fused=False`) twice each, once as they are
     and once with a torch.cuda.synchronize() around every layer, and prints
-    each layer's exclusive seconds and calls.
+    each layer's exclusive seconds and calls (the assembly's calls are
+    launches of its kernel, each carrying the chunk's live pairs).
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ from tsalign_tpu_torch import _build, engine  # noqa: E402
 from tsalign_tpu_torch.alphabet import get_alphabet  # noqa: E402
 from tsalign_tpu_torch.config import TemplateSwitchConfig  # noqa: E402
 from tsalign_tpu_torch.engine import TorchAligner  # noqa: E402
+from tsalign_tpu_torch.ops import assembly as assembly_mod  # noqa: E402
 from tsalign_tpu_torch.ops import module_scan as scan_mod  # noqa: E402
 from tsalign_tpu_torch.ops import modules  # noqa: E402
 from tsalign_tpu_torch.ops.common import I32  # noqa: E402
@@ -259,7 +262,7 @@ def breakdown():
         layers = Layers()
         for owner, attr, label in (
                 (scan_mod, "module_scan", "module-scan kernel (cross kinds)"),
-                (modules, "assembly_torch", "assembly (plain torch)"),
+                (assembly_mod, "assembly_fold", "assembly kernel and fold"),
                 (modules, "kind_sel_chunks", "compact route glue (gathers, fold)"),
                 (engine, "kind_sel_chunks", "compact route glue (gathers, fold)"),
                 (modules.KindModule, "same_module", "same-sequence module scans"),

@@ -8,6 +8,9 @@ no JAX:
 Every input is seeded and holds DEV_INF and DEV_INF - 1 entries; the
 tolerance is 0 (``torch.equal``), and for the module scan's skipping mode
 ``equal_mod_inf`` (equal below 2^29, infinite where the plain version is).
+The kernels: both sweeps (``csrc/sweep.cu``), the module scan with its
+global-memory variant (``csrc/module_scan.cu``) and the reentry assembly
+with its fold and pair axis (``csrc/assembly.cu``).
 Without a card the tests skip, and the
 plain versions are held against the JAX package by test_torch_sweep.py and
 test_torch_modules.py.
@@ -25,15 +28,9 @@ from tsalign_tpu_torch.ops import sweep as sweep_ops
 from tsalign_tpu_torch.ops.sweep import (sweep_flanked, sweep_flanked_torch, sweep_flankless,
                                          sweep_flankless_torch)
 
+from torch_cases import assembly_inputs, assembly_kinds, assembly_slab, negative_costs
+from torch_cases import rand_costs as _costs
 from torch_util import cuda  # noqa: F401
-
-
-def _costs(g, shape, lo, hi, p_inf=0.0, p_inf1=0.0):
-    x = torch.randint(lo, hi, shape, generator=g, dtype=torch.int32)
-    u = torch.rand(shape, generator=g)
-    x[u < p_inf] = DEV_INF
-    x[(u >= p_inf) & (u < p_inf + p_inf1)] = DEV_INF - 1
-    return x
 
 
 @pytest.mark.cuda
@@ -331,22 +328,25 @@ def test_module_scan_kernel_skipping_mode_on_card(cuda, fwd, allow_sdel, NB, C, 
 
 
 def widest_module(A, diag=False):
-    """The most offsets whose tables fit a block (the kernel's one cap)."""
-    lo, hi = 2048, 16384
+    """The most offsets whose tables fit a block's shared memory (beyond
+    it the launch takes the global-memory variant)."""
+    lo, hi = 2048, 16385
     while hi - lo > 1:
         mid = (lo + hi) // 2
-        try:
-            launch_plan(mid, A, diag)
-            lo = mid
-        except ValueError:
+        if launch_plan(mid, A, diag)[4]:
             hi = mid
+        else:
+            lo = mid
     return lo
 
 
 @pytest.mark.cuda
 def test_module_scan_kernel_refuses_too_wide_a_module(cuda):
+    """Past 8 warps a problem (16,384 offsets) the wrapper raises; so it does
+    on a table of the wrong shape."""
     g = torch.Generator().manual_seed(9)
-    W = widest_module(6) + 1
+    assert launch_plan(16384, 6)[4]
+    W = 16385
     t = [a.to(cuda) for a in scan_inputs(g, 2, 1, W, 2)]
     with pytest.raises(ValueError):
         module_scan(*t, fwd=True, allow_sdel=True)
@@ -375,6 +375,32 @@ def test_module_scan_kernel_wide_modules_on_card(cuda, W, fwd, allow_sdel):
     assert _build.launches["module_scan_wide"] == before + 1
     skip_from = dead_state_threshold(lut, sdo, pmask, io, ie, 9, allow_sdel=allow_sdel)
     assert equal_mod_inf(module_scan(*t, **kw, skip_from=skip_from), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("allow_sdel", [True, False])
+@pytest.mark.parametrize("fwd", [True, False])
+def test_module_scan_kernel_global_memory_variant_on_card(cuda, fwd, allow_sdel):
+    """W = 6,273 at A = 6: the tables exceed a block's shared memory, so the
+    launch takes the global-memory variant, in the exact and the skipping
+    mode and in the diagonal mode, and equals the plain version."""
+    W, A = 6273, 6
+    assert widest_module(A) < W and launch_plan(W, A)[4] and launch_plan(W, A, True)[4]
+    g = torch.Generator().manual_seed(W + 2 * int(fwd) + int(allow_sdel))
+    t = [a.to(cuda) for a in scan_inputs(g, 13, 3, W, 9, A)]
+    _, lut, sdo, _, pchar, pmask, io, ie = t
+    kw = dict(fwd=fwd, allow_sdel=allow_sdel)
+    want = module_scan_torch(*t, **kw)
+    before = dict(_build.launches)
+    assert torch.equal(module_scan(*t, **kw), want)
+    skip_from = dead_state_threshold(lut, sdo, pmask, io, ie, 9, allow_sdel=allow_sdel)
+    assert equal_mod_inf(module_scan(*t, **kw, skip_from=skip_from), want)
+    d = [a.to(cuda) for a in diag_inputs(g, 11, W, 10, A)]
+    assert torch.equal(module_scan_diag(*d, **kw), module_scan_torch(*d, **kw))
+    after = dict(_build.launches)
+    assert after["module_scan_gmem"] == before.get("module_scan_gmem", 0) + 3
+    for name in ("module_scan", "module_scan_wide", "module_scan_diag"):
+        assert after.get(name, 0) == before.get(name, 0)
 
 
 def diag_inputs(g, NB, W, L, A=6):
@@ -506,3 +532,109 @@ def test_sp_sweep_on_four_shards_of_the_card_matches_the_kernel(cuda, flanks):
         assert got.device.type == "cuda" and torch.equal(got, want[0])
     else:
         assert np.array_equal(sp_sweep_flanked(sweep, seeds, mesh), want.cpu().numpy())
+
+
+def _assembly_config(name):
+    """The port's default (dna-n), or it with the negative costs of
+    torch_cases.negative_costs."""
+    import dataclasses
+
+    from tsalign_tpu_torch.alphabet import get_alphabet
+    from tsalign_tpu_torch.config import TemplateSwitchConfig
+    from tsalign_tpu_torch.costs import INF, CostFunction
+
+    cfg = TemplateSwitchConfig.default(get_alphabet("dna-n"))
+    if name == "default":
+        return cfg
+    return dataclasses.replace(cfg, **negative_costs(CostFunction, INF))
+
+
+def _assembly_kinds(cfg, n_r, n_q, chunk, seed, n_q_real=None):
+    """The active kind modules of a seeded pair (a poison-padded query when
+    `n_q_real` is given), every kind."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 4, size=n_r).astype(np.int8)
+    qry = rng.integers(0, 4, size=n_q).astype(np.int8)
+    if n_q_real is None:
+        return assembly_kinds(cfg, ref, qry, chunk)
+    qry[n_q_real:] = cfg.alphabet.size
+    return assembly_kinds(cfg, ref, qry, chunk, real=(n_r, n_q_real))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["default", "negative"])
+def test_assembly_kernel_matches_plain_on_card(cuda, config):
+    """Every kind of a 40 x 33 pair (cross and same-sequence, both
+    directions), the chunked and the compact destinations, slabs from
+    DEV_INF and from seeded values: the kernel's fold equals the plain
+    version's (torch.equal)."""
+    import numpy as np
+
+    from tsalign_tpu_torch.ops.assembly import assembly_fold, assembly_fold_torch
+
+    g = torch.Generator().manual_seed(11)
+    kinds = _assembly_kinds(_assembly_config(config), 40, 33, 16, 11)
+    assert {(km.same_seq, km.dk) for km in kinds} == {(s, d) for s in (0, 1) for d in (0, 1)}
+    rng = np.random.default_rng(11)
+    for km in kinds:
+        t = km.tables(cuda)
+        PAD = max(0, -km.s_lo)
+        for compact in (False, True):
+            dest = rng.integers(0, km.spec.n_anti + 1, size=(1, km.chunk)) if compact else None
+            base = PAD + km.s_lo + (0 if compact else 1)
+            for seeded in (False, True):
+                B, A = assembly_inputs(g, km, cuda)
+                slab = assembly_slab(g, km, seeded, cuda)
+                want = slab.clone()
+                assembly_fold_torch([B], [A], [km], [t], [want], base, dest)
+                before = _build.launches["assembly"]
+                assembly_fold([B], [A], [km], [t], [slab], base, dest)
+                assert _build.launches["assembly"] == before + 1
+                assert torch.equal(slab, want), (km.spec.pk, km.spec.sk, km.dk, compact, seeded)
+
+
+@pytest.mark.cuda
+def test_assembly_pair_axis_matches_single_launches_on_card(cuda):
+    """Three poison-padded pairs of one bucket (different real anti lengths)
+    in one launch, their B views of one pair-axis output as the module scan
+    returns them: each pair equals its own launch and the plain version, on
+    both destinations."""
+    import numpy as np
+
+    from tsalign_tpu_torch.ops.assembly import assembly_fold, assembly_fold_torch
+
+    g = torch.Generator().manual_seed(12)
+    cfg = _assembly_config("default")
+    rng = np.random.default_rng(12)
+    sets = [_assembly_kinds(cfg, 40, 36, 16, 12, n_q_real=n) for n in (36, 29, 17)]
+    assert len({len(s) for s in sets}) == 1
+    distinct = 0
+    for kms in zip(*sets):
+        kms = list(kms)
+        km0, P = kms[0], len(kms)
+        assert all(km.padded for km in kms)
+        distinct += len({km.ah_real for km in kms}) > 1
+        ts = [km.tables(cuda) for km in kms]
+        ins = [assembly_inputs(g, km, cuda) for km in kms]
+        B_all = torch.stack([B for B, _ in ins], dim=1)  # (L+1, P, ...): views as the scan's
+        Bs = [B_all[:, z] for z in range(P)]
+        As = [A for _, A in ins]
+        PAD = max(0, -km0.s_lo)
+        for compact in (False, True):
+            dest = (rng.integers(0, km0.spec.n_anti + 1, size=(P, km0.chunk)) if compact
+                    else None)
+            base = PAD + km0.s_lo
+            slabs = [assembly_slab(g, km, True, cuda) for km in kms]
+            want = [s.clone() for s in slabs]
+            alone = [s.clone() for s in slabs]
+            assembly_fold_torch(Bs, As, kms, ts, want, base, dest)
+            before = _build.launches["assembly_pairs"]
+            assembly_fold(Bs, As, kms, ts, slabs, base, dest)
+            assert _build.launches["assembly_pairs"] == before + 1
+            for z in range(P):
+                assembly_fold([Bs[z]], [As[z]], [kms[z]], [ts[z]], [alone[z]], base,
+                              None if dest is None else dest[z : z + 1])
+                assert torch.equal(slabs[z], want[z]) and torch.equal(alone[z], want[z])
+    assert distinct  # the query-side kinds take each pair's own real anti length

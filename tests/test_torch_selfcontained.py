@@ -1,7 +1,10 @@
 """The port stands on its own: no import of the JAX package or of JAX.
 
-  * no module of ``tsalign_tpu_torch`` and not ``chip_smoke.py`` imports
+  * no module of ``tsalign_tpu_torch``, not ``chip_smoke.py`` and not the
+    cases it shares with the tests (``tests/torch_cases.py``) imports
     ``tsalign_tpu`` or ``jax`` (walked with ``ast``);
+  * the port's root has every name of ``tsalign_tpu.__all__`` and
+    ``TSPairwiseAlignment``, from its own modules, without importing torch;
   * in a subprocess where both imports fail, the port aligns under the
     default and the flanked default configuration, aligns a batch, and runs
     chained mode with its anchors from the port's own ``csrc/anchors.cpp``,
@@ -48,7 +51,8 @@ FUNCTIONS = ("rq_qr_offset_costs", "rr_qq_offset_costs", "length_costs",
 
 def _port_sources():
     out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "scripts", "torch_port_chain_probe.py")]
+           os.path.join(ROOT, "scripts", "torch_port_chain_probe.py"),
+           os.path.join(ROOT, "tests", "torch_cases.py")]
     for folder, _, names in os.walk(PORT):
         out += [os.path.join(folder, n) for n in names if n.endswith(".py")]
     return sorted(out)
@@ -78,13 +82,38 @@ def test_port_sources_are_found():
             "tsalign_tpu_torch/parallel/batch.py",
             "tsalign_tpu_torch/parallel/sp_sweep.py",
             "tsalign_tpu_torch/parallel/sp_reentry.py",
-            "scripts/torch_port_chain_probe.py"} | {
+            "scripts/torch_port_chain_probe.py", "tests/torch_cases.py"} | {
                 f"tsalign_tpu_torch/chain/{m}.py"
                 for m in ("__init__", "plan", "anchors", "native", "chain", "driver")} | {
                 f"tsalign_tpu_torch/show/{m}.py"
                 for m in ("__init__", "renderer", "parse_template_switches", "plain_text",
                           "arrangement", "svg", "png")} | {
                 "tsalign_tpu_torch/cli.py", "tsalign_tpu_torch/fasta.py"} <= names
+
+
+def test_root_has_the_jax_packages_public_names_with_both_packages_blocked():
+    """Every name of ``tsalign_tpu.__all__`` and ``TSPairwiseAlignment``
+    resolves on the port's root, from the port's own modules, and importing
+    the root imports no torch."""
+    import tsalign_tpu
+
+    names = list(tsalign_tpu.__all__) + ["TSPairwiseAlignment"]
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['tsalign_tpu'] = None\n"
+        "import tsalign_tpu_torch\n"
+        "assert 'torch' not in sys.modules\n"
+        f"for name in {names!r}:\n"
+        "    obj = getattr(tsalign_tpu_torch, name)\n"
+        "    mod = getattr(obj, '__module__', None) or 'tsalign_tpu_torch'\n"
+        "    assert mod.startswith('tsalign_tpu_torch'), (name, mod)\n"
+        "assert set(tsalign_tpu_torch.__all__) >= set(" + repr(list(tsalign_tpu.__all__)) + ")\n"
+        "print(tsalign_tpu_torch.INF)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout) == tsalign_tpu.INF
 
 
 def test_batched_engine_runs_with_both_packages_blocked():

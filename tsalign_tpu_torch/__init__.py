@@ -17,12 +17,30 @@ The command line is ``python -m tsalign_tpu_torch.cli align | show | preprocess`
 
 __version__ = "0.1.0"
 
-__all__ = ["align", "Aligner", "align_pairs", "chain_align"]
+# The JAX package's public names, from the port's own modules (numpy only).
+from .alphabet import Alphabet, get_alphabet  # noqa: F401
+from .config import TemplateSwitchConfig  # noqa: F401
+from .costs import INF, CostFunction, GapAffineCostTable  # noqa: F401
+from .geometry import AlignmentRange  # noqa: F401
+
+__all__ = [
+    "Alphabet",
+    "get_alphabet",
+    "TemplateSwitchConfig",
+    "CostFunction",
+    "GapAffineCostTable",
+    "INF",
+    "AlignmentRange",
+    "align",
+    "Aligner",
+    "align_pairs",
+    "chain_align",
+]
 
 
 def __getattr__(name):
-    # Lazy imports keep `import tsalign_tpu_torch` cheap.
-    if name in ("align", "Aligner"):
+    # Lazy imports keep `import tsalign_tpu_torch` cheap (no torch import).
+    if name in ("align", "Aligner", "TSPairwiseAlignment"):
         from . import aligner
 
         return getattr(aligner, name)

@@ -58,8 +58,13 @@ _SIGNATURES = {
     # seedT, lut, sdo, sde, pchar, pmask, io, ie, out,
     # P, NB, C, W, L, A, fwd, allow_sdel, skip_from, diag, stream
     "tsa_module_scan": ("module_scan", [_P] * 9 + [_I] * 10 + [_P]),
-    # W, A, diag, K (out), T (out), G (out), bytes (out)
-    "tsa_module_scan_plan": ("module_scan", [_I] * 3 + [_P] * 4),
+    # the same, for a launch whose tables stay in device memory
+    "tsa_module_scan_gmem": ("module_scan_gmem", [_P] * 9 + [_I] * 10 + [_P]),
+    # W, A, diag, K (out), T (out), G (out), bytes (out), gmem (out)
+    "tsa_module_scan_plan": ("module_scan", [_I] * 3 + [_P] * 5),
+    # ptrs, strides, ints, segs (host arrays), n_segs, P, n_rows, C, L, S, s_lo,
+    # anti_lo, ldiff0, same, stream
+    "tsa_assembly": ("assembly", [_P] * 4 + [_I] * 10 + [_P]),
 }
 
 

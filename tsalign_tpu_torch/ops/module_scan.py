@@ -14,7 +14,8 @@ the result is then a view of the kernel's output, whose problem axis holds
 the sets side by side.  For tensors
 on the CPU they run the plain version ``ops.modules.module_scan_torch`` (a
 set at a time); for tensors on a CUDA device they launch
-``csrc/module_scan.cu``.
+``csrc/module_scan.cuh``'s kernel (entry points in ``csrc/module_scan.cu``
+and, for the global-memory variant, ``csrc/module_scan_gmem.cu``).
 
 Two modes.  With ``skip_from=0`` (the exact mode) the kernel equals the
 plain version bit for bit.  With ``skip_from > 0`` (the skipping mode) a
@@ -26,9 +27,12 @@ from ``ops.common.dead_state_threshold``.  The plain version never skips, and
 the diagonal mode runs the exact mode only.
 
 A module of up to 2048 offsets runs a problem in one warp; a wider one in
-T = ceil(W / 2048) warps of a block.  What is left of a cap is the tables'
-shared memory: ``(A + 3) * 32 T K * 4`` bytes of a block (K the offsets a
-lane), about 6,300 offsets at A = 6 rows; beyond it the wrapper raises.
+T = ceil(W / 2048) warps of a block.  The tables live in a block's shared
+memory, ``(A + 3) * 32 T K * 4`` bytes (K the offsets a lane), up to about
+6,300 offsets at A = 6 rows; where they do not fit, the launch takes the
+kernel's global-memory variant, whose tables stay in device memory (counted
+as ``module_scan_gmem``, in either mode).  Its cap is 8 warps a problem,
+16,384 offsets; beyond it the wrapper raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -43,17 +47,17 @@ from .modules import module_scan_torch
 
 def launch_plan(W: int, A: int, diag: bool = False):
     """(K offsets a lane, T warps a problem, G problems a block, shared
-    bytes) of a kernel launch; ValueError where a problem's tables exceed a
-    block's shared memory."""
+    bytes, gmem) of a kernel launch, gmem true where the tables stay in
+    device memory; ValueError past 8 warps a problem (W > 16,384)."""
     lib = _build.library()
-    K, T, G, nbytes = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    K, T, G, gmem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    nbytes = ctypes.c_longlong()
     code = lib.tsa_module_scan_plan(W, A, int(diag), ctypes.byref(K), ctypes.byref(T),
-                                    ctypes.byref(G), ctypes.byref(nbytes))
+                                    ctypes.byref(G), ctypes.byref(nbytes), ctypes.byref(gmem))
     if code != 0:
-        raise ValueError(
-            f"module_scan kernel: {A} LUT rows of {W} offsets exceed a block's shared "
-            f"memory ((A + 3) * 32 T K * 4 bytes <= 227 KB; about 6,300 offsets at A = 6)")
-    return K.value, T.value, G.value, nbytes.value
+        raise ValueError(f"module_scan kernel: a module of {W} offsets ({A} LUT rows) exceeds "
+                         f"8 warps a problem (16,384 offsets)")
+    return K.value, T.value, G.value, nbytes.value, bool(gmem.value)
 
 
 def _check_skip(skip_from):
@@ -95,13 +99,15 @@ def module_scan(seedT, lut, sdo, sde, pchar, pmask, io, ie, *, fwd: bool,
         raise ValueError(f"module_scan runs on cpu or cuda, not {dev}")
     if W < 1:
         raise ValueError(f"module_scan kernel takes W >= 1, got {W}")
-    _, T, G, _ = launch_plan(W, A)
+    _, T, G, _, gmem = launch_plan(W, A)
     NBs, levels = _sets_side_by_side(pairs, G, pchar, pmask, io, ie)
     out = torch.empty((L + 1, P * NBs, C), dtype=I32, device=dev)
     if P and NB and C:
         lib = _build.library()
-        name = "module_scan_pairs" if P > 1 else ("module_scan_wide" if T > 1 else "module_scan")
-        code = _build.timed(name, lambda: lib.tsa_module_scan(
+        name = ("module_scan_gmem" if gmem else "module_scan_pairs" if P > 1
+                else "module_scan_wide" if T > 1 else "module_scan")
+        entry = lib.tsa_module_scan_gmem if gmem else lib.tsa_module_scan
+        code = _build.timed(name, lambda: entry(
             seedT.data_ptr(), lut.data_ptr(), sdo.data_ptr(), sde.data_ptr(),
             *(t.data_ptr() for t in levels), out.data_ptr(), P, NB, C, W, L, A,
             int(fwd), int(allow_sdel), int(skip_from), 0, _build.stream_ptr(dev),
@@ -160,16 +166,18 @@ def module_scan_diag(seed, lut, sdo, sde, pchar, pmask, io, ie, *, fwd: bool,
         raise ValueError(f"module_scan_diag runs on cpu or cuda, not {dev}")
     if W < 1:
         raise ValueError(f"module_scan_diag kernel takes W >= 1, got {W}")
-    _, _, G, _ = launch_plan(W, A, diag=True)
+    _, _, G, _, gmem = launch_plan(W, A, diag=True)
     NBs, levels = _sets_side_by_side(pairs, G, pchar, pmask, io, ie)
     out = torch.empty((L + 1, P * NBs), dtype=I32, device=dev)
     if P and NB:
         lib = _build.library()
-        code = _build.timed("module_scan_diag", lambda: lib.tsa_module_scan(
+        name = "module_scan_gmem" if gmem else "module_scan_diag"
+        entry = lib.tsa_module_scan_gmem if gmem else lib.tsa_module_scan
+        code = _build.timed(name, lambda: entry(
             seed.data_ptr(), lut.data_ptr(), sdo.data_ptr(), sde.data_ptr(),
             *(t.data_ptr() for t in levels), out.data_ptr(), P, NB, 1, W, L, A,
             int(fwd), int(allow_sdel), 0, 1, _build.stream_ptr(dev),
         ))
-        _build.check(code, "module_scan_diag")
-        _build.launches["module_scan_diag"] += 1
+        _build.check(code, name)
+        _build.launches[name] += 1
     return out.view(L + 1, P, NBs)[:, :, :NB].transpose(0, 1) if pairs else out

@@ -6,12 +6,15 @@ Counterpart of ``tsalign_tpu/ops/jax_modules.py``.  Per kind (pk, sk, dk):
      plain form of ``_module_scan_xla``; cross kinds run the CUDA kernel
      through ``ops.module_scan.module_scan`` on the card), emitting the
      per-level exit minima B;
-  2. the reentry assembly (`assembly_torch`, the static-plan branch of
+  2. the reentry assembly (`assembly_torch`, the plain form of
      ``_assembly``): shear D3[p2 - l, e, l] + length(l), per finite ldiff
      segment a sliding-window min over s with the anti-gap walk bands and
      kill rows, the ldiff = 0 term, anti(s), then the diagonal min-fold to
      R_pad[p, c + s] (with `separate_cols`, the (n_p+1, C, S) slab of
-     each entry column instead);
+     each entry column instead); `kind_all_chunks` and `kind_sel_chunks`
+     reach it through ``ops.assembly.assembly_fold``, which folds into the
+     kind's slab in place and on the card runs ``csrc/assembly.cu`` for a
+     chunk's pairs in one launch;
   3. the two chunk drivers, each over one pair or a batch of pairs: the
      chunked route (`kind_all_chunks`, ``_kind_all_chunks``: every live
      chunk of the entry axis) and the compact live-column route
@@ -234,8 +237,9 @@ class KindModule:
         self.plans = tuple(plans)
         # A poison-padded (bucketed) problem: the positive-ldiff exit walk
         # p2 + ldiff <= Ah takes the real anti length, a value of this pair
-        # (`assembly_torch`); the shapes and the other plans stay the
-        # bucket's, shared by every pair of it.
+        # (`assembly_torch`, and the assembly kernel's per-pair `ah`); the
+        # shapes and the other plans stay the bucket's, shared by every pair
+        # of it.
         self.padded = spec.bucketed
         self.ah_real = min(anti_hi, spec.n_anti_real)
 
@@ -488,12 +492,15 @@ def kind_all_chunks(kms, A_b, eb_b, PAD: int, width: int):
     """All live chunks of one kind (``_kind_all_chunks``) over one pair or a
     batch of pairs (``_kind_map_jit``): for each chunk index, one module scan
     over the pairs for which that chunk is live (their rows gathered onto the
-    kernel's pair axis), then each pair's assembly and min-fold into its
-    padded reentry slab at columns PAD + e_base + s_lo.  `kms` are the pairs'
-    modules of the kind, A_b (B, n_p+1, n_e) their entry fields in the kind's
-    orientation, eb_b (B, chunks) the chunk bases, -1 for a chunk that is
-    skipped.  Returns each pair's (n_p+1, width) slab, None where no chunk is
-    live."""
+    kernel's pair axis), then the assembly of those pairs, min-folded into
+    their padded reentry slabs at columns PAD + e_base + s_lo
+    (``ops.assembly.assembly_fold``: one launch on the card).  `kms` are the
+    pairs' modules of the kind, A_b (B, n_p+1, n_e) their entry fields in the
+    kind's orientation, eb_b (B, chunks) the chunk bases, -1 for a chunk that
+    is skipped.  Returns each pair's (n_p+1, width) slab, None where no chunk
+    is live."""
+    from .assembly import assembly_fold
+
     km0 = kms[0]
     dev = A_b.device
     C = km0.chunk
@@ -506,14 +513,13 @@ def kind_all_chunks(kms, A_b, eb_b, PAD: int, width: int):
             continue
         e_base = int(eb_b[live[0], ci])
         sl = slice(e_base, e_base + C)
-        Bs = _chunk_modules(kms, ts, live, [A_b[i, :, sl] for i in live], sl, levels,
-                            skip_from)
-        for z, i in enumerate(live):
-            R_pad = assembly_torch(Bs[z], A_b[i, :, sl], kms[i], ts[i])
+        A_chunks = [A_b[i, :, sl] for i in live]
+        Bs = _chunk_modules(kms, ts, live, A_chunks, sl, levels, skip_from)
+        for i in live:
             if slabs[i] is None:
                 slabs[i] = full_inf((km0.spec.n_p + 1, width), dev)
-            cols = slice(PAD + e_base + km0.s_lo, PAD + e_base + km0.s_lo + R_pad.shape[1])
-            slabs[i][:, cols] = torch.minimum(slabs[i][:, cols], R_pad)
+        assembly_fold(Bs, A_chunks, [kms[i] for i in live], [ts[i] for i in live],
+                      [slabs[i] for i in live], PAD + e_base + km0.s_lo)
     return slabs
 
 
@@ -529,16 +535,20 @@ def kind_sel_chunks(kms, A_b, e_sel_b, PAD: int, OUTW: int, n_live=None):
     Each pair's live columns of the entry field and of the kind's per-entry
     tables are gathered by index; the compact axis runs in chunks of C at
     the bases min(i C, Kb - C), each one module-scan launch over the pairs
-    (the kernel's pair axis) and each pair's assembly with separate
-    columns, whose column c min-folds its s-slab at PAD + e_c + s_lo + s.
+    (the kernel's pair axis) and one assembly of those pairs
+    (``ops.assembly.assembly_fold``), whose column c min-folds its s-slab at
+    PAD + e_c + s_lo + s.
     `n_live` (B,), when given, holds each pair's count of live columns: a
     chunk wholly of sentinel slots is not run for that pair.  Returns the
     (B, n_p+1, OUTW) folded slabs, OUTW = PAD + n_anti + 1 + max(0, s_hi)."""
+    from .assembly import assembly_fold
+
     km0 = kms[0]
     dev = A_b.device
-    C, S = km0.chunk, km0.S
+    C = km0.chunk
     n_rows = km0.spec.n_p + 1
-    e_sel = torch.as_tensor(np.asarray(e_sel_b), dtype=torch.long).to(dev)
+    e_sel_host = np.asarray(e_sel_b, dtype=np.int64)
+    e_sel = torch.from_numpy(e_sel_host).to(dev)
     Kb = e_sel.shape[1]
     ts = [km.tables(dev) for km in kms]
     levels, skip_from = _kind_levels(kms, ts)
@@ -550,20 +560,16 @@ def kind_sel_chunks(kms, A_b, e_sel_b, PAD: int, OUTW: int, n_live=None):
                  "sdo": t["sdo"].index_select(0, e), "sde": t["sde"].index_select(0, e)}
                 for t, e in zip(ts, e_sel)]
     out = full_inf((len(kms), n_rows, OUTW), dev)
-    s_off = torch.arange(S, device=dev)[None, :] + (PAD + km0.s_lo)
     for e0 in range(0, Kb, C):
         eb = min(e0, Kb - C) if Kb >= C else 0
         live = [i for i in range(len(kms)) if n_live is None or eb < n_live[i]]
         if not live:
             continue
         sl = slice(eb, eb + C)
-        Bs = _chunk_modules(kms, tabs, live, [A_sel[i][:, sl] for i in live], sl, levels,
-                            skip_from)
-        for z, i in enumerate(live):
-            U = assembly_torch(Bs[z], A_sel[i][:, sl], kms[i], ts[i], separate_cols=True)
-            pos = (e_sel[i, sl][:, None] + s_off).reshape(1, -1).expand(n_rows, -1)
-            out[i] = out[i].scatter_reduce(1, pos, U.reshape(n_rows, -1), reduce="amin",
-                                           include_self=True)
+        A_chunks = [A_sel[i][:, sl] for i in live]
+        Bs = _chunk_modules(kms, tabs, live, A_chunks, sl, levels, skip_from)
+        assembly_fold(Bs, A_chunks, [kms[i] for i in live], [ts[i] for i in live],
+                      [out[i] for i in live], PAD + km0.s_lo, dest=e_sel_host[live, sl])
     return out
 
 
