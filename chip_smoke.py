@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py            # needs one CUDA card; takes no arguments
 
-Phases, each ending with a line of its wall time (phase_s):
+Phases, each ending with a line of its wall time (phase_s; phases 1-5 also
+the seconds of it spent in device_ms's profiler sessions, device_ms_s):
   1. the card (nvidia-smi name and power limit), torch/CUDA versions, the
-     build of the CUDA kernels from tsalign_tpu_torch/csrc, what ptxas
+     build of the CUDA kernels from tsalign_tpu_torch/csrc (its seconds and
+     each source's nvcc seconds), what ptxas
      and cuobjdump say of the module scan (registers and spills of every
      instantiation, DPX instructions in its SASS), ptxas of the sweep's
      instantiations and of the assembly kernel, and the latency of one
@@ -13,7 +15,9 @@ Phases, each ending with a line of its wall time (phase_s):
      SM clock it ran at;
   2. each kernel against its plain torch version on the card (torch.equal,
      tolerance 0) on seeded inputs holding DEV_INF and DEV_INF - 1, timed
-     with CUDA events; the sweeps in both seed layouts, the flanked one for
+     with CUDA events (the assembly kernel, faster than the host's call, by
+     its device time in torch.profiler's trace, the call's beside it); the
+     sweeps in both seed layouts, the flanked one for
      six (L, R, climb) settings, and both at the edges of a super-tile and of
      a block's eight, with the launch's warps and with fewer, on negative
      seeds beside infinite ones, and many rows over and over on scratch
@@ -34,8 +38,8 @@ Phases, each ending with a line of its wall time (phase_s):
      compact destinations, slabs from DEV_INF and from seeded values, B
      holding negative values, DEV_INF, DEV_INF - 1 and [2^29, DEV_INF);
      then its pair axis at phase 7's shapes (eight poison-padded pairs in
-     the 512 bucket, each with its own real anti length), each pair also
-     against its own launch;
+     the 512 bucket, each with its own real anti length, B of L_read + 1
+     levels), each pair also against its own launch;
   3. three small planted-TSM pairs under the default configuration and three
      under the flanked default: the port's cost equals the Dijkstra oracle's
      (tsalign_tpu_torch.oracle);
@@ -48,11 +52,13 @@ Phases, each ending with a line of its wall time (phase_s):
      must launch, and the alignment must reprice to the cost; then the
      kernels against their plain versions at the shapes that path launches:
      the root sweep, and two chunks of every cross kind in both directions,
-     the module scan in both modes with each mode's time and bound, the share
-     of (problem, level) pairs the skipping mode has to run and the share of
-     problems dead at level 0, and the assembly of every cross kind at its
-     live chunk with the most finite entry cells, on the B the module scan
-     gives it;
+     the module scan in both modes (launched, as the engine launches it,
+     over the L_read levels the assembly reads) with each mode's time and
+     bound, the share of (problem, level) pairs the skipping mode has to run
+     and the share of problems dead at level 0, and the assembly of every
+     cross kind at its live chunk with the most finite entry cells, on the B
+     the module scan gives it, with the share of its (row, column) pairs
+     whose every staged value is 2^29 or more (and DEV_INF itself);
   6. the flanked main path: the same pair with a substitution on either side
      of the planted stretch, under the flanked default (two flank layers on
      either side, F = 5, cheaper flank tables), through
@@ -152,11 +158,15 @@ Any failure raises, so the script exits nonzero before its last line.  The
 last lines are the kernels' JSON record, the card's name and power limit,
 and {"ok": true, "device": {...}}.
 
-In the kernels' record, bound_ms is the least time the card could take for
-the compared call: the larger of its bytes (every input read once, the
-output written once) over 3.35 TB/s and its integer min/add operations over
-33.5e12 a second.  For the assembly the bytes are each B read once and each
-pair's slab window read and written once, and the operations each output's
+In the kernels' record, ms is timed with CUDA events around repeated calls
+(ms_by "events"), or for the assembly by its device time in torch.profiler's
+trace (ms_by "profiler", the events' time beside it as call_ms).  bound_ms is
+the least time the card could take for the compared call: the larger of its
+bytes (every input read once, the output written once) over 3.35 TB/s and
+its integer min/add operations over 33.5e12 a second.  For the assembly the
+bytes are the entries of B that its rows' shear reaches (levels up to
+L_read), a same-sequence kind's entry columns, each pair's slab window read
+and written once and the length and anti tables, and the operations each output's
 window minima at a running minimum's cost (van Herk / Gil-Werman: about
 three a window, whatever its width; fewer for a window narrower than four)
 and the saturating adds and minima that combine them.  For the sweeps a third time is taken beside the two, the
@@ -210,7 +220,7 @@ from tsalign_tpu_torch.ops.common import (DEV_INF, DEV_INF_THRESH, dead_state_th
                                           equal_mod_inf, sat_add)
 from tsalign_tpu_torch.ops.assembly import assembly_fold, assembly_fold_torch
 from tsalign_tpu_torch.ops.module_scan import launch_plan, module_scan, module_scan_diag
-from tsalign_tpu_torch.ops.modules import module_scan_torch
+from tsalign_tpu_torch.ops.modules import LEVEL_NAMES, module_scan_torch
 from tsalign_tpu_torch.ops.primary_sweep import GAP_NONE
 from tsalign_tpu_torch.ops import sweep as sweep_ops
 from tsalign_tpu_torch.ops.sweep import (dpx_chain_clocks, sweep_flanked, sweep_flanked_torch,
@@ -345,6 +355,36 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# Wall seconds spent inside device_ms (its profiler sessions included), for
+# the phases' share of them.
+profiler_s = [0.0]
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device time of the CUDA kernels whose name holds `kernel` in a
+    run of fn(), over `reps` runs after one warm-up run, from torch.profiler's
+    trace: the kernels' own time, without the host's cost of a call that
+    cuda_ms counts where the host is the slower of the two."""
+    t0 = time.monotonic()
+    try:
+        return _device_ms(fn, reps, kernel)
+    finally:
+        profiler_s[0] += time.monotonic() - t0
+
+
+def _device_ms(fn, reps, kernel):
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages() if kernel in e.key)
+    if us <= 0:
+        raise AssertionError(f"device_ms: the trace holds no device time of {kernel}")
+    return us / reps / 1e3
 
 
 def under_load(fn):
@@ -602,7 +642,7 @@ def phase1():
     _build.library()
     say(1, card=card_line(), torch=torch.__version__, cuda=torch.version.cuda,
         python=sys.version.split()[0], build_s=time.monotonic() - t0,
-        devices=torch.cuda.device_count())
+        build_s_by_source=dict(_build.build_seconds), devices=torch.cuda.device_count())
     module_scan_build_report()
     sweep_build_report()
     (r,) = _build.resources("assembly")
@@ -920,18 +960,19 @@ def phase2_variants(gen):
 ASSEMBLY_OPS_PER_WINDOW, ASSEMBLY_OPS_PER_SEGMENT, ASSEMBLY_OPS_PER_OUTPUT = 3, 3, 6
 
 
-def assembly_bound(Bs, A_chunks, kms, spans):
-    """(bound_ms, bound_by) of one assembly_fold call.  Bytes: every B and,
-    for a same-sequence kind, every entry chunk read once, each pair's slab
-    window read and written once, its length and anti tables.  Operations:
+def assembly_bound(A_chunks, kms, spans):
+    """(bound_ms, bound_by) of one assembly_fold call.  Bytes
+    (torch_cases.assembly_bytes): the entries of B that the rows' shear
+    reaches and, for a same-sequence kind, the entry columns, read once,
+    each pair's slab window read and written once, its length and anti
+    tables.  Operations:
     each output's window minimum in each segment at a running minimum's cost
     (ASSEMBLY_OPS_PER_WINDOW, fewer for the narrow windows these rows take),
     and the terms that combine them."""
     n_bytes = ops = 0
-    for B, A, km, span in zip(Bs, A_chunks, kms, spans):
+    for A, km, span in zip(A_chunks, kms, spans):
         n_rows, C = A.shape
-        n_bytes += (nbytes(B) + (nbytes(A) if km.same_seq else 0) + 2 * 4 * n_rows * span
-                    + 4 * (km.L + 1 + km.S))
+        n_bytes += torch_cases.assembly_bytes(km, n_rows, C, span)
         ah = km.ah_real if km.padded else km.anti_hi
         p2 = np.arange(n_rows)
         minima = 0  # a (column, output)'s window operations over the rows
@@ -995,29 +1036,9 @@ def phase2_assembly(gen):
                                    f"{cname} kind {[km.spec.pk, km.spec.sk, km.dk]} "
                                    f"compact={compact} seeded={seeded}")
         say(2, kernel="assembly", config=cname, pair=[120, 100], kinds=len(kinds), equal=True)
-    al = get_alphabet("dna-n")
-    cfg = TemplateSwitchConfig.default(al)
-    pairs = batch_pairs()
-    sets = []
-    for r, q in pairs:
-        ref = np.full(512, al.size, dtype=np.int8)
-        qry = np.full(512, al.size, dtype=np.int8)
-        ref[: len(r)] = al.encode(r)
-        qry[: len(q)] = al.encode(q)
-        sets.append(assembly_kinds(cfg, ref, qry, 64, real=(len(r), len(q))))
     timings = {}
-    for kms in zip(*sets):
-        kms = list(kms)
-        km0 = kms[0]
-        if km0.same_seq and km0.dk == 0 or not km0.same_seq and km0.spec.pk == 1:
-            continue  # a cross kind (query side) and a same-sequence kind, both directions
-        P = len(kms)
-        ts = [km.tables(DEV) for km in kms]
-        ins = [assembly_inputs(gen, km, DEV) for km in kms]
-        B_all = torch.stack([B for B, _ in ins], dim=1)  # views, as the module scan's
-        Bs = [B_all[:, z] for z in range(P)]
-        As = [A for _, A in ins]
-        base = max(0, -km0.s_lo) + km0.s_lo
+    for kms, Bs, As, ts, base in bucket_assembly_inputs(gen):
+        km0, P = kms[0], len(kms)
         kind = [km0.spec.pk, km0.spec.sk, km0.dk]
         for compact in (False, True):
             dest = (rng.integers(0, km0.spec.n_anti + 1, size=(P, km0.chunk)) if compact
@@ -1032,19 +1053,48 @@ def phase2_assembly(gen):
                 compare("assembly_pairs", got[z], alone, f"512 bucket pair {z} alone")
             if compact:
                 continue
-            ms = cuda_ms(lambda: assembly_fold(Bs, As, kms, ts, slabs, base), 10)
-            single_ms = cuda_ms(lambda: [assembly_fold([Bs[z]], [As[z]], [kms[z]], [ts[z]],
-                                                       [slabs[z]], base) for z in range(P)], 3)
+            run = lambda: assembly_fold(Bs, As, kms, ts, slabs, base)  # noqa: E731
+            ms, call_ms = device_ms(run, 10, "assembly_kernel"), cuda_ms(run, 10)
+            single_ms = device_ms(lambda: [assembly_fold([Bs[z]], [As[z]], [kms[z]], [ts[z]],
+                                                         [slabs[z]], base) for z in range(P)],
+                                  3, "assembly_kernel")
             spans = [km0.chunk + km0.S - 1] * P
-            bound_ms, bound_by = assembly_bound(Bs, As, kms, spans)
+            bound_ms, bound_by = assembly_bound(As, kms, spans)
             say(2, kernel="assembly_pairs", pairs=P, kind=kind, n_rows=km0.n_p + 1,
-                C=km0.chunk, L=km0.L, S=km0.S, segments=len(km0.plans),
-                ah_real=[km.ah_real for km in kms], equal=True, ms=ms,
+                C=km0.chunk, L=km0.L, L_read=km0.L_read, S=km0.S, segments=len(km0.plans),
+                ah_real=[km.ah_real for km in kms], equal=True, ms=ms, call_ms=call_ms,
                 single_launches_ms=single_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
             if not km0.same_seq:
-                timings["assembly_pairs"] = (ms, plain_ms, bound_ms, bound_by)
+                timings["assembly_pairs"] = (ms, plain_ms, bound_ms, bound_by, call_ms)
     return timings
+
+
+def bucket_assembly_inputs(gen):
+    """(kind modules, Bs, entry chunks, tables, dest_base) of one chunk of
+    phase 7's 512 bucket, eight poison-padded pairs of 380-500 bp, for a
+    cross kind (query side, forward) and a same-sequence kind (reverse):
+    seeded B of L_read + 1 levels, as views of one pair-axis tensor like the
+    module scan's."""
+    al = get_alphabet("dna-n")
+    cfg = TemplateSwitchConfig.default(al)
+    sets = []
+    for r, q in batch_pairs():
+        ref = np.full(512, al.size, dtype=np.int8)
+        qry = np.full(512, al.size, dtype=np.int8)
+        ref[: len(r)] = al.encode(r)
+        qry[: len(q)] = al.encode(q)
+        sets.append(assembly_kinds(cfg, ref, qry, 64, real=(len(r), len(q))))
+    for kms in zip(*sets):
+        kms = list(kms)
+        km0 = kms[0]
+        if km0.same_seq and km0.dk == 0 or not km0.same_seq and km0.spec.pk == 1:
+            continue  # a cross kind (query side) and a same-sequence kind, both directions
+        ts = [km.tables(DEV) for km in kms]
+        ins = [assembly_inputs(gen, km, DEV) for km in kms]
+        B_all = torch.stack([B for B, _ in ins], dim=1)  # views, as the module scan's
+        yield (kms, [B_all[:, z] for z in range(len(kms))], [A for _, A in ins], ts,
+               max(0, -km0.s_lo) + km0.s_lo)
 
 
 def plane_major_pairs(seeds):
@@ -1437,7 +1487,8 @@ def phase5_shapes(r, q):
         timings.setdefault("module_scan", (ms, plain_ms, bound_ms, bound_by))
         NB, Cc, W = margs[0].shape
         say(5, kernel="module_scan", kind=kind, e_base=e_base, NB=NB, C=Cc, W=W,
-            L=km.L, fwd=kw["fwd"], allow_sdel=km.allow_sdel, equal=True,
+            L=km.L, levels_launched=km.L_read + 1, fwd=kw["fwd"],
+            allow_sdel=km.allow_sdel, equal=True,
             equal_mod_inf_skipping=True, skip_from=km.skip_from,
             exact_ms=exact_ms, exact_bound_ms=exact_bound_ms, exact_bound_by=exact_by,
             ms=ms, bound_ms=bound_ms, bound_by=bound_by, live_share=live,
@@ -1452,9 +1503,35 @@ def main_pair_assembly(eng, root):
     live chunk with the most finite entry cells, on the B that the engine's
     module scan (the skipping mode) gives it, folded into the kind's slab.
     Returns the kernel and plain times and the bound of the first kind."""
+    timings = {}
+    for km, e_base, B, A_chunk, t, base, finite_cells in main_pair_assembly_inputs(eng, root):
+        C = km.chunk
+        slab = torch.full((km.n_p + 1, slab_width(km)), DEV_INF, dtype=torch.int32, device=DEV)
+        kind = [km.spec.pk, km.spec.sk, km.dk]
+        plain_ms, _ = check_assembly("assembly", [B], [A_chunk], [km], [t], [slab], base,
+                                     what=f"main pair kind {kind} chunk {e_base}")
+        run = lambda: assembly_fold([B], [A_chunk], [km], [t], [slab], base)  # noqa: E731
+        ms, call_ms = device_ms(run, 20, "assembly_kernel"), cuda_ms(run, 20)
+        bound_ms, bound_by = assembly_bound([A_chunk], [km], [C + km.S - 1])
+        timings.setdefault("assembly", (ms, plain_ms, bound_ms, bound_by, call_ms))
+        dead, dead_inf = dead_columns(B, km, t)
+        say(5, kernel="assembly", kind=kind, e_base=e_base,
+            finite_entry_cells=finite_cells, n_rows=km.n_p + 1, C=C, L=km.L,
+            L_read=km.L_read, S=km.S, segments=len(km.plans), equal=True, ms=ms,
+            call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            dead_column_share=dead, dead_column_share_all_dev_inf=dead_inf,
+            terms_nonnegative=min([p.cost for p in km.plans] + [km.ldiff0]) >= 0
+            and int(t["anti_vec"].min()) >= 0)
+    return timings
+
+
+def main_pair_assembly_inputs(eng, root):
+    """(kind module, e_base, B, entry chunk, tables, dest_base, finite entry
+    cells) of every active cross kind of the main path's first reentry
+    round at its live chunk with the most finite entry cells, B from the
+    engine's module scan (the skipping mode, L_read levels)."""
     E, best, _ = eng._sweep_summary(root, True)
     A = eng._pruned_entry_cells(E, best)
-    timings = {}
     for km in (k for k in eng._build_kinds(eng._sdel_budget(best)) if not k.same_seq):
         A_np = np.ascontiguousarray(A if km.spec.pk == 0 else A.T)
         C, n_e = km.chunk, km.spec.n_anti + 1
@@ -1465,23 +1542,28 @@ def main_pair_assembly(eng, root):
         A_chunk = torch.from_numpy(A_np).to(DEV)[:, sl]
         t = km.tables(DEV)
         seedT = sat_add(A_chunk[:, :, None], t["seed"][sl][None, :, :]).contiguous()
+        lv = km.level_tables(DEV)
         B = module_scan(seedT, t["lut"][:, sl].contiguous(), t["sdo"][sl].contiguous(),
-                        t["sde"][sl].contiguous(), t["pchar_l"], t["pmask_l"], t["io_l"],
-                        t["ie_l"], fwd=km.dk == 0, allow_sdel=km.allow_sdel,
-                        skip_from=km.skip_from)
-        base = max(0, -km.s_lo) + e_base + km.s_lo
-        slab = torch.full((km.n_p + 1, slab_width(km)), DEV_INF, dtype=torch.int32, device=DEV)
-        kind = [km.spec.pk, km.spec.sk, km.dk]
-        plain_ms, _ = check_assembly("assembly", [B], [A_chunk], [km], [t], [slab], base,
-                                     what=f"main pair kind {kind} chunk {e_base}")
-        ms = cuda_ms(lambda: assembly_fold([B], [A_chunk], [km], [t], [slab], base), 20)
-        bound_ms, bound_by = assembly_bound([B], [A_chunk], [km], [C + km.S - 1])
-        timings.setdefault("assembly", (ms, plain_ms, bound_ms, bound_by))
-        say(5, kernel="assembly", kind=kind, e_base=e_base,
-            finite_entry_cells=int(finite[sl].sum()), n_rows=km.n_p + 1, C=C, L=km.L,
-            S=km.S, segments=len(km.plans), equal=True, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by)
-    return timings
+                        t["sde"][sl].contiguous(), *(lv[n] for n in LEVEL_NAMES),
+                        fwd=km.dk == 0, allow_sdel=km.allow_sdel, skip_from=km.skip_from)
+        yield (km, e_base, B, A_chunk, t, max(0, -km.s_lo) + e_base + km.s_lo,
+               int(finite[sl].sum()))
+
+
+def dead_columns(B, km, t):
+    """Shares of the (row, column) pairs of a cross kind's chunk whose every
+    staged value, sat(B[l, p2 - l, c] + length[l]) for l <= min(p2, L_read),
+    is >= 2^29, and is DEV_INF itself (the assembly kernel reads B of every
+    such pair all the same)."""
+    n_rows, L = B.shape[1], km.L_read
+    x = sat_add(B, t["length_vec"][: L + 1, None, None])
+    lv = torch.arange(L + 1, device=B.device)[None, :]
+    src = torch.arange(n_rows, device=B.device)[:, None] - lv  # (n_rows, L + 1)
+    xs = x[lv, src.clamp_min(0)]  # (n_rows, L + 1, C)
+    staged = (src >= 0)[:, :, None]
+    big = torch.where(staged, xs >= DEV_INF_THRESH, True).all(dim=1)
+    inf = torch.where(staged, xs == DEV_INF, True).all(dim=1)
+    return float(big.float().mean()), float(inf.float().mean())
 
 
 def main_pair_chunks(eng, root):
@@ -1509,9 +1591,10 @@ def main_pair_chunks(eng, root):
         for e_base in [0] + later[len(later) // 2 :][:1]:
             sl = slice(e_base, e_base + C)
             seedT = sat_add(A_mod[:, sl][:, :, None], t["seed"][sl][None, :, :]).contiguous()
+            lv = km.level_tables(DEV)  # the L_read levels the engine launches
             yield km, e_base, (
                 seedT, t["lut"][:, sl].contiguous(), t["sdo"][sl].contiguous(),
-                t["sde"][sl].contiguous(), t["pchar_l"], t["pmask_l"], t["io_l"], t["ie_l"])
+                t["sde"][sl].contiguous(), *(lv[n] for n in LEVEL_NAMES))
 
 
 def phase6():
@@ -2639,13 +2722,13 @@ def main():
         raise SystemExit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)")
     timings = {}
     for phase, fn in ((1, phase1), (2, phase2), (3, phase3), (4, phase4)):
-        t0 = time.monotonic()
+        t0, p0 = time.monotonic(), profiler_s[0]
         timings.update(fn() or {})
-        say(phase, phase_s=time.monotonic() - t0)
-    t0 = time.monotonic()
+        say(phase, phase_s=time.monotonic() - t0, device_ms_s=profiler_s[0] - p0)
+    t0, p0 = time.monotonic(), profiler_s[0]
     r, q, counts, record, fused_run = phase5()
     timings.update(phase5_shapes(r, q))
-    say(5, phase_s=time.monotonic() - t0)
+    say(5, phase_s=time.monotonic() - t0, device_ms_s=profiler_s[0] - p0)
     t0 = time.monotonic()
     fr, fq, flanked_counts, flanked_record = phase6()
     timings.update(phase6_shapes(fr, fq))
@@ -2675,7 +2758,7 @@ def main():
     for name, meta in KERNELS.items():
         if max_err[name] is None or name not in timings:
             raise AssertionError(f"{name}: not compared or not timed at the main shapes")
-        ms, plain_ms, bound_ms, bound_by = timings[name]
+        ms, plain_ms, bound_ms, bound_by, *call_ms = timings[name]
         by_path = {"flankless": counts.get(name, 0), "flanked": flanked_counts.get(name, 0),
                    "batch": batch_counts.get(name, 0),
                    "flanked_batch": flanked_batch_counts.get(name, 0),
@@ -2694,7 +2777,9 @@ def main():
             raise AssertionError(f"{name}: launched on no main path")
         kernels.append(dict(name=name, **meta, launches=launches, launches_by_path=by_path,
                             max_abs_err=max_err[name], ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+                            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                            ms_by="profiler" if call_ms else "events",
+                            **({"call_ms": call_ms[0]} if call_ms else {})))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

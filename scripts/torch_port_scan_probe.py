@@ -2,7 +2,9 @@
 """Measurements of the port's module-scan kernel and main pairs on one CUDA card.
 
     python3 scripts/torch_port_scan_probe.py [--old-source FILE] [--define N=V]
-                                             [--wide] [--sass-k K] [--breakdown] [--out DIR]
+                                             [--wide] [--sass-k K] [--breakdown]
+                                             [--old-assembly FILE]
+                                             [--long N] [--out DIR]
 
 Runs from the root of a checkout, on a machine with one NVIDIA card and nvcc.
 Every line it prints is `[probe] {json}`; the first holds the card's name and
@@ -36,6 +38,19 @@ power limit.
     and once with a torch.cuda.synchronize() around every layer, and prints
     each layer's exclusive seconds and calls (the assembly's calls are
     launches of its kernel, each carrying the chunk's live pairs).
+  * With `--old-assembly FILE`: FILE is the assembly source of an earlier
+    commit (`git show <commit>:tsalign_tpu_torch/csrc/assembly.cu`, with the
+    same C entry point).  It is built beside the package's own, and both are held against the plain version and timed in turns
+    (old, new, new, old) at the main pair's assembly chunks (each cross
+    kind's live chunk with the most finite entry cells, on the B of the
+    engine's module scan) and at the 512 bucket's 8-pair launches of
+    chip_smoke.py phase 2, both on B of L_read + 1 levels, with the
+    corrected bound; and the module scan of each main chunk at L_read and at
+    all L levels, in turns.
+  * With `--long N`: one seeded N x N planted pair under the default
+    configuration through tsalign_tpu_torch.align(..., device="cuda") (the
+    card's default loop), once, with every layer wrapped as for
+    `--breakdown`.
 """
 
 from __future__ import annotations
@@ -46,9 +61,11 @@ import ctypes
 import json
 import os
 import shutil
+import contextlib
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -67,6 +84,7 @@ from tsalign_tpu_torch.ops import modules  # noqa: E402
 from tsalign_tpu_torch.ops.common import I32  # noqa: E402
 from tsalign_tpu_torch.ops.module_scan import module_scan  # noqa: E402
 from tsalign_tpu_torch.ops.modules import module_scan_torch  # noqa: E402
+from tsalign_tpu_torch.parallel import batch_ts, fused_rounds  # noqa: E402
 
 
 def say(**numbers):
@@ -119,6 +137,127 @@ def build_variant(defines):
         return out
 
     return run
+
+
+def build_assembly(source: str):
+    """A context in which the package's assembly wrapper launches an earlier
+    source's `tsa_assembly` (the same C entry point), built with the
+    package's nvcc flags."""
+    so = _build.BUILD_DIR / "libassembly_earlier.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.monotonic()
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), source], check=True,
+                   capture_output=True, text=True)
+    fn = ctypes.CDLL(str(so)).tsa_assembly
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    say(assembly_build="earlier", source=source, build_s=time.monotonic() - t0)
+    lib = types.SimpleNamespace(**vars(_build.library()))
+    lib.tsa_assembly = fn
+
+    @contextlib.contextmanager
+    def active():
+        own, _build._lib = _build._lib, lib
+        try:
+            yield
+        finally:
+            _build._lib = own
+
+    return active
+
+
+def assembly_case(builds, Bs, As, kms, ts, base, **row):
+    """The package's kernel and the other builds (name -> context) against
+    the plain version on copies of seeded slabs, then timed in turns (earlier, new, ..., new, earlier): each
+    kernel's device time by torch.profiler, and once the call's by CUDA
+    events (host included where the host is the slower)."""
+    km0 = kms[0]
+    gen = torch.Generator().manual_seed(3)
+    slabs = [cs.assembly_slab(gen, km, True, cs.DEV) for km in kms]
+    want = [s.clone() for s in slabs]
+    assembly_mod.assembly_fold_torch(Bs, As, kms, ts, want, base)
+    runs = {"new": contextlib.nullcontext, **builds}
+    for name, ctx in runs.items():
+        got = [s.clone() for s in slabs]
+        with ctx():
+            assembly_mod.assembly_fold(Bs, As, kms, ts, got, base)
+        for z in range(len(kms)):
+            cs.compare("assembly", got[z], want[z], f"{name} pair {z}")
+
+    def ms(ctx):
+        with ctx():
+            return cs.device_ms(lambda: assembly_mod.assembly_fold(Bs, As, kms, ts, slabs, base),
+                                20, "assembly_kernel")
+
+    times = {k: [] for k in runs}
+    order = list(runs)[::-1]
+    for name in order + order[::-1]:
+        times[name].append(ms(runs[name]))
+    times["call"] = [cs.cuda_ms(lambda: assembly_mod.assembly_fold(Bs, As, kms, ts, slabs, base),
+                                20)]
+    bound_ms, bound_by = cs.assembly_bound(As, kms, [km0.chunk + km0.S - 1] * len(kms))
+    say(kernel="assembly" if len(kms) == 1 else "assembly_pairs", pairs=len(kms),
+        kind=[km0.spec.pk, km0.spec.sk, km0.dk], n_rows=km0.n_p + 1, C=km0.chunk, L=km0.L,
+        L_read=km0.L_read, S=km0.S, equal=True, ms=times.pop("new"),
+        **{f"{k}_ms": v for k, v in times.items()}, bound_ms=bound_ms, bound_by=bound_by,
+        **row)
+
+
+def assembly(builds):
+    eng = main_engine()
+    root = eng._root_seeds()
+    for km, e_base, B, A, t, base, finite in cs.main_pair_assembly_inputs(eng, root):
+        assembly_case(builds, [B], [A], [km], [t], base, e_base=e_base,
+                      finite_entry_cells=finite)
+        # the same chunk's module scan (skipping mode) at L_read and at all L levels
+        C, sl = km.chunk, slice(e_base, e_base + km.chunk)
+        seedT = cs.sat_add(A[:, :, None], t["seed"][sl][None, :, :]).contiguous()
+        head = (seedT, t["lut"][:, sl].contiguous(), t["sdo"][sl].contiguous(),
+                t["sde"][sl].contiguous())
+        lv = km.level_tables(cs.DEV)
+        capped = head + tuple(lv[n] for n in modules.LEVEL_NAMES)
+        full = head + tuple(t[n] for n in modules.LEVEL_NAMES)
+        kw = dict(fwd=km.dk == 0, allow_sdel=km.allow_sdel, skip_from=km.skip_from)
+        if not torch.equal(module_scan(*capped, **kw), module_scan(*full, **kw)[: km.L_read + 1]):
+            raise AssertionError("the capped module scan is not the full scan's first levels")
+        times = {"capped": [], "full": []}
+        for name in ("full", "capped", "capped", "full"):
+            args = capped if name == "capped" else full
+            times[name].append(cs.cuda_ms(lambda: module_scan(*args, **kw), 10))
+        bound = {name: cs.module_scan_bound(*args, allow_sdel=km.allow_sdel)[0]
+                 for name, args in (("capped", capped), ("full", full))}
+        say(kernel="module_scan", kind=[km.spec.pk, km.spec.sk, km.dk], e_base=e_base,
+            shape=list(seedT.shape), levels_capped=km.L_read + 1, levels_full=km.L + 1,
+            skipping_ms_capped=times["capped"], skipping_ms_full=times["full"],
+            exact_bound_ms_capped=bound["capped"], exact_bound_ms_full=bound["full"])
+    gen = torch.Generator().manual_seed(2)
+    for kms, Bs, As, ts, base in cs.bucket_assembly_inputs(gen):
+        assembly_case(builds, Bs, As, kms, ts, base, ah_real=[km.ah_real for km in kms])
+
+
+def long_pair(n: int):
+    rng = np.random.default_rng(n)
+    r, q = cs.planted_pair(rng, n, 40, 5, True)
+    engine._KINDS_MEMO.clear()
+    engine._LB_MEMO.clear()
+    _build.launches.clear()
+    layers = Layers()
+    for owner, attr, label in LAYERS:
+        layers.wrap(owner, attr, label)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    try:
+        res = tsalign_tpu_torch.align(r, q, device=cs.DEV)
+    finally:
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        layers.restore()
+    inside = sum(layers.seconds.values())
+    say(pair=[len(r), len(q)], wall_s=wall, cost=res.stats()["cost"],
+        launches=dict(_build.launches), card=cs.card_line(),
+        layer_seconds_calls={k: [layers.seconds[k], layers.calls[k]] for k in
+                             sorted(layers.seconds, key=layers.seconds.get, reverse=True)},
+        facade_and_record_s=wall - inside)
 
 
 def main_engine():
@@ -260,24 +399,7 @@ def breakdown():
         say(pair="flanked" if flanked else "flankless", wrapped=False, wall_s=wall, cost=cost,
             launches=launches)
         layers = Layers()
-        for owner, attr, label in (
-                (scan_mod, "module_scan", "module-scan kernel (cross kinds)"),
-                (assembly_mod, "assembly_fold", "assembly kernel and fold"),
-                (modules, "kind_sel_chunks", "compact route glue (gathers, fold)"),
-                (engine, "kind_sel_chunks", "compact route glue (gathers, fold)"),
-                (modules.KindModule, "same_module", "same-sequence module scans"),
-                (modules, "fold_kind_cells", "fold"),
-                (engine, "fold_kind_cells", "fold"),
-                (modules.KindModule, "tables", "kind tables to the card"),
-                (TorchAligner, "_sweep_summary", "sweep kernel and summary"),
-                (TorchAligner, "_remaining_bound", "remaining bound (host)"),
-                (TorchAligner, "_can_improve_cells", "_can_improve_cells (host)"),
-                (TorchAligner, "_pruned_entry_cells", "_pruned_entry_cells (host)"),
-                (TorchAligner, "_build_kinds", "kind tables (host)"),
-                (TorchAligner, "_route", "route and chunk bases (host)"),
-                (TorchAligner, "_reentry", "reentry glue (seeds, slabs, copies)"),
-                (TorchAligner, "align", "rounds loop glue"),
-                (engine, "align_with_traceback", "traceback (host)")):
+        for owner, attr, label in LAYERS:
             layers.wrap(owner, attr, label)
         try:
             wall, cost, launches = align_main(flanked)
@@ -290,6 +412,32 @@ def breakdown():
             launches=launches, layer_seconds_calls=rows, facade_and_record_s=wall - inside)
 
 
+# (owner, attribute, label) of the layers --breakdown and --long time: the
+# host rounds loop's, and the fused loop's that the card's default takes
+LAYERS = (
+    (scan_mod, "module_scan", "module-scan kernel (cross kinds)"),
+    (assembly_mod, "assembly_fold", "assembly kernel and fold"),
+    (modules, "kind_sel_chunks", "compact route glue (gathers, fold)"),
+    (engine, "kind_sel_chunks", "compact route glue (gathers, fold)"),
+    (modules.KindModule, "same_module", "same-sequence module scans"),
+    (modules, "fold_kind_cells", "fold"),
+    (engine, "fold_kind_cells", "fold"),
+    (modules.KindModule, "tables", "kind tables to the card"),
+    (TorchAligner, "_sweep_summary", "sweep kernel and summary"),
+    (TorchAligner, "_remaining_bound", "remaining bound (host)"),
+    (TorchAligner, "_can_improve_cells", "_can_improve_cells (host)"),
+    (TorchAligner, "_pruned_entry_cells", "_pruned_entry_cells (host)"),
+    (TorchAligner, "_build_kinds", "kind tables (host)"),
+    (TorchAligner, "_route", "route and chunk bases (host)"),
+    (TorchAligner, "_reentry", "reentry glue (seeds, slabs, copies)"),
+    (TorchAligner, "align", "rounds loop glue"),
+    (engine, "align_with_traceback", "traceback (host)"),
+    (batch_ts, "_sweep_batch", "sweep kernel, pair axis (fused loop)"),
+    (fused_rounds, "fused_loop", "fused rounds loop glue"),
+    (batch_ts.BatchedTSAligner, "align_with_traceback", "batched engine and traceback"),
+)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old-source")
@@ -299,6 +447,10 @@ def main():
     ap.add_argument("--wide", action="store_true",
                     help="with --old-source: W = 1100 and W = 2048 against the earlier kernel")
     ap.add_argument("--breakdown", action="store_true")
+    ap.add_argument("--old-assembly",
+                    help="an earlier csrc/assembly.cu, held and timed beside the package's")
+    ap.add_argument("--long", type=int, default=0,
+                    help="one N x N planted pair through align(device='cuda'), layers wrapped")
     ap.add_argument("--out", default="scan_probe_out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -324,8 +476,12 @@ def main():
         if old is None:
             raise SystemExit("--wide needs --old-source")
         wide(old)
+    if args.old_assembly:
+        assembly({"earlier": build_assembly(args.old_assembly)})
     if args.breakdown:
         breakdown()
+    if args.long:
+        long_pair(args.long)
 
 
 if __name__ == "__main__":

@@ -15,7 +15,16 @@ here, with tolerance 0, on seeded numpy inputs:
   * a poison-padded bucket at two real query lengths, the pairs of one call
     (the pair axis) each against the JAX package;
   * ``kind_all_chunks`` and ``kind_sel_chunks`` through the wrapper against
-    ``_kind_all_chunks`` and ``_kind_sel_chunks(gather=True)``.
+    ``_kind_all_chunks`` and ``_kind_sel_chunks(gather=True)``, also where
+    the module scan stops at L_read, below the pair's L;
+  * B's levels above ``KindModule.L_read`` change neither the JAX package's
+    assembly nor the port's, and its level L_read changes both, under the
+    default, the flanked default, binding-window, random and negative
+    configurations and on a poison-padded pair;
+  * the engine (``TorchAligner``, the facade's record) against the JAX
+    engine on pairs where the cap binds;
+  * ``torch_cases.assembly_bytes``, the byte count of the kernel's bound,
+    against a count of the entries the plain version's shear reads.
 
 The kernel itself runs on the card only (``tests/test_torch_kernels.py``).
 """
@@ -27,9 +36,12 @@ import numpy as np
 import pytest
 import torch
 
+import tsalign_tpu_torch
+from tsalign_tpu.aligner import Aligner as JaxFacade
 from tsalign_tpu.alphabet import get_alphabet
 from tsalign_tpu.config import TemplateSwitchConfig
 from tsalign_tpu.costs import INF, CostFunction, GapAffineCostTable
+from tsalign_tpu.jax_engine import JaxAligner
 from tsalign_tpu.ops.jax_modules import (JaxKindModule, _assembly, _kind_all_chunks,
                                          _kind_sel_chunks, _same_module_jit)
 from tsalign_tpu.ops.tsm_modules import make_kind_spec
@@ -37,11 +49,13 @@ from tsalign_tpu_torch.convert import config_from_reference
 from tsalign_tpu_torch.ops import tsm_modules as port_tsm
 from tsalign_tpu_torch.ops.assembly import assembly_fold
 from tsalign_tpu_torch.ops.common import DEV_INF
-from tsalign_tpu_torch.ops.modules import KindModule, kind_all_chunks, kind_sel_chunks
+from tsalign_tpu_torch.engine import TorchAligner
+from tsalign_tpu_torch.ops.modules import (KindModule, assembly_torch, kind_all_chunks,
+                                           kind_sel_chunks)
 
-from torch_cases import negative_costs
+from torch_cases import assembly_bytes, negative_costs
 from torch_util import one_torch_thread  # noqa: F401
-from util import random_config
+from util import binding_window_config, random_config, related_pair_scaled
 
 KINDS = [(pk, sk, dk) for pk in (0, 1) for sk in (0, 1) for dk in (0, 1)]
 
@@ -72,6 +86,9 @@ def _config(name):
         return _flanked_default()
     if name == "negative":
         return _negative_config()
+    if name.startswith("binding"):
+        return binding_window_config(np.random.default_rng(int(name.split("_")[1])),
+                                     get_alphabet("dna"), 0, 0)
     return random_config(np.random.default_rng(int(name.split("_")[1])),
                          get_alphabet("dna"), flanks=False)
 
@@ -170,7 +187,7 @@ def test_assembly_fold_matches_jax_assembly_and_slab_minimum(name):
                 base = PAD + int(rng.integers(0, 3)) + km.s_lo
             want = _jax_chunk_fold(jkm, B, A_chunk, slab0, base, dest)
             got = torch.from_numpy(slab0.copy())
-            assembly_fold([torch.from_numpy(B)], [torch.from_numpy(A_chunk)], [km],
+            assembly_fold([torch.from_numpy(B[: km.L_read + 1])], [torch.from_numpy(A_chunk)], [km],
                           [km.tables("cpu")], [got], base,
                           dest=None if dest is None else dest[None])
             np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{kind} {compact}")
@@ -214,7 +231,7 @@ def test_padded_bucket_pair_axis_matches_jax(n_q_real):
         ins = [_chunk_inputs(rng, km, spec) for km in kms]
         slabs0 = [_seeded_slab(rng, (spec.n_p + 1, width)) for _ in kms]
         got = [torch.from_numpy(s.copy()) for s in slabs0]
-        assembly_fold([torch.from_numpy(B) for B, _ in ins],
+        assembly_fold([torch.from_numpy(B[: km.L_read + 1]) for (B, _), km in zip(ins, kms)],
                       [torch.from_numpy(A) for _, A in ins], list(kms),
                       [km.tables("cpu") for km in kms], got, base)
         for z, jkm in enumerate(jkms):
@@ -232,6 +249,7 @@ def test_assembly_fold_checks_its_inputs():
     qry = rng.integers(0, 4, size=12).astype(np.int8)
     _, km = _modules(cfg, ref, qry, (0, 1, 0), chunk=5)
     B, A_chunk = _chunk_inputs(rng, km, km.spec)
+    B = B[: km.L_read + 1]
     t = km.tables("cpu")
     PAD = max(0, -km.s_lo)
     slab = torch.full((km.spec.n_p + 1, PAD + km.spec.n_anti + km.S + 8), DEV_INF,
@@ -260,9 +278,29 @@ def test_chunk_loops_match_jax(name):
     rng = np.random.default_rng(9)
     ref = rng.integers(0, 4, size=13).astype(np.int8)
     qry = rng.integers(0, 4, size=11).astype(np.int8)
-    n_checked = 0
+    assert len(_check_chunk_loops(cfg, ref, qry, 4, rng)) >= 4
+
+
+@pytest.mark.parametrize("seed", [2, 59])
+def test_chunk_loops_match_jax_where_levels_are_capped(seed):
+    """The chunk loops of a 48 x 44 pair under a binding-window
+    configuration, where the module scan stops at L_read < L: equal to the
+    JAX package's loops, which scan all L levels."""
+    cfg = _config(f"binding_{seed}")
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 4, size=48).astype(np.int8)
+    qry = rng.integers(0, 4, size=44).astype(np.int8)
+    kms = _check_chunk_loops(cfg, ref, qry, 8, rng)
+    assert len(kms) >= 4 and all(km.L_read < km.L for km in kms)
+
+
+def _check_chunk_loops(cfg, ref, qry, chunk, rng):
+    """``kind_all_chunks`` (every chunk, one skipped) and ``kind_sel_chunks``
+    (a live-column bucket with sentinel slots) of every active kind against
+    the JAX package's; returns the kinds checked."""
+    checked = []
     for kind in KINDS:
-        mods = _modules(cfg, ref, qry, kind, chunk=4)
+        mods = _modules(cfg, ref, qry, kind, chunk=chunk)
         if mods is None:
             continue
         jkm, km = mods
@@ -294,5 +332,134 @@ def test_chunk_loops_match_jax(name):
             st=st._replace(separate_cols=True), PAD=PAD, OUTW=OUTW, gather=True))
         got = kind_sel_chunks([km], A_t[None], e_sel[None], PAD, OUTW)[0]
         np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{kind} compact")
-        n_checked += 1
-    assert n_checked >= 4
+        checked.append(km)
+    return checked
+
+
+@pytest.mark.parametrize("name,n_r,n_q,n_q_real", [
+    ("default", 230, 210, None), ("flanked_default", 230, 210, None),
+    ("binding_2", 52, 47, None), ("binding_59", 48, 44, None), ("random_40", 40, 34, None),
+    ("negative", 50, 45, None), ("binding_70", 52, 50, 41)])
+def test_levels_above_L_read_never_change_the_assembly(name, n_r, n_q, n_q_real):
+    """B's levels above L_read, replaced by other seeded values, change
+    neither ``_assembly`` nor ``assembly_torch``; every entry of level
+    L_read lowered changes both, and ``assembly_fold`` on B's first
+    L_read + 1 levels equals the JAX package's fold on all of B either way
+    (the last case a poison-padded pair)."""
+    cfg = _config(name)
+    rng = np.random.default_rng(n_r + n_q)
+    A = cfg.alphabet.size
+    ref = rng.integers(0, min(A, 4), size=n_r).astype(np.int8)
+    qry = rng.integers(0, min(A, 4), size=n_q).astype(np.int8)
+    if n_q_real is not None:
+        qry[n_q_real:] = A
+    capped = changed = 0
+    for kind in KINDS if n_q_real is None else [k for k in KINDS if k[0] == 0]:
+        mods = _modules(cfg, ref, qry, kind, chunk=4, n_q_real=n_q_real)
+        if mods is None:
+            continue
+        jkm, km = mods
+        spec, Lr = km.spec, km.L_read
+        t = km.tables("cpu")
+        B, A_chunk = _chunk_inputs(rng, km, spec)
+        capped += Lr < km.L
+        noise = B.copy()
+        noise[Lr + 1 :] = _seeded_B(rng, noise[Lr + 1 :].shape)
+        low = B.copy()
+        low[Lr] = -20
+        PAD = max(0, -km.s_lo)
+        width = PAD + spec.n_anti + 1 + max(0, km.chunk - 1 + km.s_hi)
+        base = PAD + km.s_lo
+        slab0 = _seeded_slab(rng, (spec.n_p + 1, width))
+        want = _jax_chunk_fold(jkm, B, A_chunk, slab0, base)
+        np.testing.assert_array_equal(_jax_chunk_fold(jkm, noise, A_chunk, slab0, base), want)
+        R = assembly_torch(torch.from_numpy(B), torch.from_numpy(A_chunk), km, t)
+        assert torch.equal(
+            assembly_torch(torch.from_numpy(noise), torch.from_numpy(A_chunk), km, t), R)
+        want_low = _jax_chunk_fold(jkm, low, A_chunk, slab0, base)
+        R_low = assembly_torch(torch.from_numpy(low), torch.from_numpy(A_chunk), km, t)
+        assert torch.equal(R_low, R) == np.array_equal(want_low, want)
+        changed += not np.array_equal(want_low, want)
+        for Bx, wx in ((B, want), (low, want_low)):
+            got = torch.from_numpy(slab0.copy())
+            assembly_fold([torch.from_numpy(Bx[: Lr + 1])], [torch.from_numpy(A_chunk)], [km],
+                          [t], [got], base)
+            np.testing.assert_array_equal(got.numpy(), wx, err_msg=f"{kind}")
+    assert capped and changed
+
+
+@pytest.mark.parametrize("seed", [59, 70])
+def test_engine_matches_jax_where_levels_are_capped(seed):
+    """``TorchAligner(device="cpu")`` and the facade's record against the
+    JAX engine's on a 48 bp pair under a binding-window configuration, whose
+    kinds' module scans stop at L_read < L."""
+    rng = np.random.default_rng(seed)
+    al = get_alphabet("dna")
+    cfg = binding_window_config(rng, al, 0, 0)
+    ref, qry = related_pair_scaled(rng, al, 48, ts_len=8)
+    port_cfg = config_from_reference(cfg)
+    kms = [m[1] for m in (_modules(cfg, ref, qry, kind, chunk=32) for kind in KINDS) if m]
+    assert kms and all(km.L_read < km.L for km in kms)
+    want = JaxAligner(cfg, ref, qry, chunk=32).align()
+    got = TorchAligner(port_cfg, ref, qry, device="cpu", chunk=32).align()
+    assert (got.cost, got.rounds) == (want.cost, want.rounds)
+    r, q = al.decode(ref), al.decode(qry)
+    want = JaxFacade(costs=cfg, engine="jax").align(r, q)
+    got = tsalign_tpu_torch.Aligner(costs=port_cfg, device="cpu").align(r, q)
+    assert got.stats()["cost"] == want.stats()["cost"]
+
+    def record(res):
+        return [line for line in res.to_toml().splitlines()
+                if not line.startswith(("duration_seconds", "runtime"))]
+
+    assert record(got) == record(want)
+
+
+@pytest.mark.parametrize("name,n_r,n_q,n_q_real", [
+    ("default", 230, 210, None), ("binding_2", 52, 47, None), ("random_41", 30, 26, None),
+    ("binding_70", 52, 50, 41)])
+def test_assembly_bytes_count_the_entries_the_shear_reads(name, n_r, n_q, n_q_real):
+    """The bytes of the assembly kernel's bound (``torch_cases.assembly_bytes``)
+    against a count of the B (and, same-sequence, entry-chunk) entries whose
+    (row, level) pair the plain version's shear reads; B's other entries,
+    replaced by other values, do not change ``assembly_torch``."""
+    cfg = _config(name)
+    port_cfg = config_from_reference(cfg)
+    rng = np.random.default_rng(n_r)
+    A = cfg.alphabet.size
+    ref = rng.integers(0, min(A, 4), size=n_r).astype(np.int8)
+    qry = rng.integers(0, min(A, 4), size=n_q).astype(np.int8)
+    kw = dict(sdel_budget=16)
+    if n_q_real is not None:
+        qry[n_q_real:] = A
+        kw.update(n_ref_real=n_r, n_qry_real=n_q_real)
+    n_kinds = 0
+    for pk, sk, dk in KINDS:
+        spec = port_tsm.make_kind_spec(port_cfg, n_r, n_q, pk, sk, dk, **kw)
+        if spec is None:
+            continue
+        km = KindModule(spec, port_cfg, ref, qry, 0, n_q if pk == 0 else n_r, chunk=6)
+        if not km.active:
+            continue
+        n_rows, C, Lr = spec.n_p + 1, km.chunk, km.L_read
+        read = np.zeros((km.L + 1, n_rows), bool)  # (level, source row) of B
+        rows = np.zeros(n_rows, bool)  # entry rows p2 - l read
+        for p2 in range(n_rows):
+            for lv in range(Lr + 1):
+                if p2 - lv >= 0:
+                    read[lv, p2 - lv] = True
+                    rows[p2 - lv] = True
+        entries = (int(read.sum()) + int(rows.sum()) * C if km.same_seq
+                   else int(read.sum()) * C)
+        span = C + km.S - 1
+        assert assembly_bytes(km, n_rows, C, span) == 4 * (
+            entries + 2 * n_rows * span + Lr + 1 + km.S), (pk, sk, dk)
+        B, A_chunk = _chunk_inputs(rng, km, spec)
+        other = B.copy()
+        other[~read] = _seeded_B(rng, other.shape)[~read]
+        t = km.tables("cpu")
+        assert torch.equal(
+            assembly_torch(torch.from_numpy(other), torch.from_numpy(A_chunk), km, t),
+            assembly_torch(torch.from_numpy(B), torch.from_numpy(A_chunk), km, t))
+        n_kinds += 1
+    assert n_kinds >= 4

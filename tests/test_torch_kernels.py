@@ -638,3 +638,140 @@ def test_assembly_pair_axis_matches_single_launches_on_card(cuda):
                               None if dest is None else dest[z : z + 1])
                 assert torch.equal(slabs[z], want[z]) and torch.equal(alone[z], want[z])
     assert distinct  # the query-side kinds take each pair's own real anti length
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["default", "negative"])
+def test_assembly_kernel_at_capped_levels_on_card(cuda, config):
+    """The default configuration's real windows (w = 100, S = 196) on a
+    240 x 220 pair at chunk 64, where the windows read fewer levels than
+    the pair has (L_read < L): every kind, both destinations, slabs from
+    DEV_INF and from seeded values, B of L_read + 1 levels holding DEV_INF,
+    DEV_INF - 1 and [2^29, DEV_INF); the kernel's fold equals the plain
+    version's (torch.equal)."""
+    import numpy as np
+
+    from tsalign_tpu_torch.ops.assembly import assembly_fold, assembly_fold_torch
+
+    g = torch.Generator().manual_seed(13)
+    kinds = _assembly_kinds(_assembly_config(config), 240, 220, 64, 13)
+    assert all(km.L_read < km.L for km in kinds)
+    if config == "default":
+        assert {km.S for km in kinds} == {196}
+        assert {p.b - p.a + 1 for km in kinds for p in km.plans} == {100}
+    rng = np.random.default_rng(13)
+    for km in kinds:
+        t = km.tables(cuda)
+        PAD = max(0, -km.s_lo)
+        for compact in (False, True):
+            dest = rng.integers(0, km.spec.n_anti + 1, size=(1, km.chunk)) if compact else None
+            for seeded in (False, True):
+                B, A = assembly_inputs(g, km, cuda)
+                assert B.shape[0] == km.L_read + 1
+                slab = assembly_slab(g, km, seeded, cuda)
+                want = slab.clone()
+                assembly_fold_torch([B], [A], [km], [t], [want], PAD + km.s_lo, dest)
+                assembly_fold([B], [A], [km], [t], [slab], PAD + km.s_lo, dest)
+                assert torch.equal(slab, want), (km.spec.pk, km.spec.sk, km.dk, compact, seeded)
+
+
+def _synthetic_plans(km, rng):
+    """Segments inside the kind's own (so that every window stays inside its
+    levels) of widths 1, 2, 3, 6, 8, 26 and the whole of each, with costs
+    from -3 to 4: the band rows then take every width from 1 to w, and the
+    kill rows empty windows."""
+    from tsalign_tpu_torch.ops.modules import SegPlan
+
+    Al, Ah, n_p = km.anti_lo, km.anti_hi, km.n_p
+    plans = []
+    for p in km.plans:
+        near, far = (p.a, p.b) if p.positive else (-p.b, -p.a)
+        cuts, lo = [], near
+        for w in (1, 2, 3, 6, 8, 26):
+            if lo + w - 1 > far:
+                break
+            cuts.append((lo, lo + w - 1))
+            lo += w
+        cuts.append((near, far))
+        for x, y in cuts:
+            a, b = (x, y) if p.positive else (-y, -x)
+            c = int(rng.integers(-3, 5))
+            if p.positive:
+                plans.append(SegPlan(a, b, c, True, Ah - b, (max(0, Ah - b + 1), min(n_p, Ah - a)),
+                                     Ah - a + 1))
+            else:
+                plans.append(SegPlan(a, b, c, False, Al - a, (max(0, Al - b), min(n_p, Al - a - 1)),
+                                     Al - b))
+    return tuple(plans[:16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", [(60, 50, None), (15, 12, None), (60, 50, 37)])
+def test_assembly_kernel_every_window_width_on_card(cuda, pair):
+    """Synthetic segments of widths 1 to w (windows narrower than 8, wider
+    than S on the 15 x 12 pair, empty on kill rows), negative costs, band
+    rows and, on a poison-padded pair, the band at its real anti length: the
+    kernel's fold equals the plain version's (torch.equal)."""
+    import numpy as np
+
+    from tsalign_tpu_torch.ops.assembly import assembly_fold, assembly_fold_torch
+
+    n_r, n_q, n_q_real = pair
+    g = torch.Generator().manual_seed(n_r + n_q)
+    rng = np.random.default_rng(n_r + n_q)
+    kinds = _assembly_kinds(_assembly_config("default"), n_r, n_q, 16, n_r, n_q_real=n_q_real)
+    wider = 0
+    for km in kinds:
+        km.plans = _synthetic_plans(km, rng)
+        widths = {p.b - p.a + 1 for p in km.plans}
+        assert {1, 2, 3} <= widths
+        wider += max(widths) > km.S
+        t = km.tables(cuda)
+        PAD = max(0, -km.s_lo)
+        for compact in (False, True):
+            dest = rng.integers(0, km.spec.n_anti + 1, size=(1, km.chunk)) if compact else None
+            B, A = assembly_inputs(g, km, cuda)
+            slab = assembly_slab(g, km, True, cuda)
+            want = slab.clone()
+            assembly_fold_torch([B], [A], [km], [t], [want], PAD + km.s_lo, dest)
+            got = slab.clone()
+            assembly_fold([B], [A], [km], [t], [got], PAD + km.s_lo, dest)
+            assert torch.equal(got, want), (km.spec.pk, km.spec.sk, km.dk, compact)
+    assert wider or n_r != 15
+
+
+@pytest.mark.cuda
+def test_assembly_kernel_output_rounds_on_card(cuda):
+    """A 1300 x 1250 pair under an anti-gap window of +-1500 at chunk 4: S
+    is above what one round of a block's threads covers (1,024 outputs), the
+    windows read past L (L_read = L), and a doubling pass takes more than one
+    batch; a cross and a same-sequence kind, both destinations: the
+    kernel's fold equals the plain version's (torch.equal)."""
+    import dataclasses
+
+    import numpy as np
+
+    from tsalign_tpu_torch.costs import INF, CostFunction
+    from tsalign_tpu_torch.ops.assembly import assembly_fold, assembly_fold_torch
+
+    wide = CostFunction([(-(2 ** 62), INF), (-1500, 1), (1500, INF)])
+    cfg = dataclasses.replace(_assembly_config("default"), forward_anti_primary_gap_costs=wide,
+                              reverse_anti_primary_gap_costs=wide)
+    rng = np.random.default_rng(14)
+    kinds = assembly_kinds(cfg, rng.integers(0, 4, size=1300).astype(np.int8),
+                           rng.integers(0, 4, size=1250).astype(np.int8), 4)
+    kinds = [km for km in kinds if km.dk == 0 and km.spec.pk == 0]
+    assert {km.same_seq for km in kinds} == {False, True}
+    g = torch.Generator().manual_seed(14)
+    for km in kinds:
+        assert km.S > 1024 and km.L_read == km.L
+        t = km.tables(cuda)
+        PAD = max(0, -km.s_lo)
+        for compact in (False, True):
+            dest = rng.integers(0, km.spec.n_anti + 1, size=(1, km.chunk)) if compact else None
+            B, A = assembly_inputs(g, km, cuda)
+            slab = assembly_slab(g, km, True, cuda)
+            want = slab.clone()
+            assembly_fold_torch([B], [A], [km], [t], [want], PAD + km.s_lo, dest)
+            assembly_fold([B], [A], [km], [t], [slab], PAD + km.s_lo, dest)
+            assert torch.equal(slab, want), (km.same_seq, compact)

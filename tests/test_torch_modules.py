@@ -176,7 +176,9 @@ def test_kind_tables_and_same_sequence_scan_match_jax(cfg_name):
         if spec.same_seq:
             n_same += 1
             want = np.asarray(_same_module_jit(jkm._fixed, st=st))
-            np.testing.assert_array_equal(km.same_module("cpu").numpy(), want)
+            # the engine's scan stops at the last level the assembly reads
+            np.testing.assert_array_equal(km.same_module("cpu").numpy(),
+                                          want[: km.L_read + 1])
             # the diagonal mode's plain path, alone and as two sets of a pair axis
             t = km.tables("cpu")
             names = ("seed", "lut", "sdo", "sde", "pchar_l", "pmask_l", "io_l", "ie_l")

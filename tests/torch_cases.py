@@ -62,16 +62,30 @@ def assembly_kinds(cfg, ref, qry, chunk, real=None):
 
 
 def assembly_inputs(gen, km, dev):
-    """Seeded B (negative, DEV_INF, DEV_INF - 1 and [2^29, DEV_INF) entries)
-    and entry columns of one chunk of kind `km`, on `dev`."""
+    """Seeded B at the levels the assembly reads (negative, DEV_INF,
+    DEV_INF - 1 and [2^29, DEV_INF) entries) and entry columns of one chunk
+    of kind `km`, on `dev`."""
     n_rows, C = km.n_p + 1, km.chunk
     A = rand_costs(gen, (n_rows, C), -3, 30, 0.3, 0.05)
-    shape = (km.L + 1, n_rows) + (() if km.same_seq else (C,))
+    shape = (km.L_read + 1, n_rows) + (() if km.same_seq else (C,))
     B = rand_costs(gen, shape, -4, 40, 0.2, 0.05)
     big = torch.rand(shape, generator=gen) < 0.05
     B[big] = torch.randint(DEV_INF_THRESH, DEV_INF, (int(big.sum()),), generator=gen,
                            dtype=torch.int32)
     return B.to(dev), A.to(dev)
+
+
+def assembly_bytes(km, n_rows, C, span):
+    """The bytes one chunk's assembly depends on, each read or written once:
+    the entries of B that the rows' shear reaches (level l <= L_read of row
+    p2 - l >= 0, for p2 < n_rows; C columns each for a cross kind), for a
+    same-sequence kind the entry columns those rows read (all n_rows), each
+    row's slab window of `span` ints read and written, and the length and
+    anti tables."""
+    levels = min(km.L_read, n_rows - 1) + 1
+    reached = levels * n_rows - levels * (levels - 1) // 2  # sum of n_rows - l, l < levels
+    entries = reached + n_rows * C if km.same_seq else reached * C
+    return 4 * (entries + 2 * n_rows * span + km.L_read + 1 + km.S)
 
 
 def slab_width(km):

@@ -21,6 +21,8 @@ import os
 import re
 import shutil
 import subprocess
+import threading
+import time
 import types
 from pathlib import Path
 
@@ -41,6 +43,9 @@ launches: collections.Counter = collections.Counter()
 kernel_events = None
 
 _lib = None
+# Seconds from the start of the build to each source's nvcc exit, by stem
+# (the sources built by the last `library()` call that built any).
+build_seconds: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -83,6 +88,7 @@ def library():
         return _lib
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     targets, procs = {}, []
+    t0 = time.monotonic()
     for src in sorted(CSRC.glob("*.cu")):
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + src.read_bytes() + headers)
         so = BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
@@ -91,11 +97,24 @@ def library():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_suffix(f".tmp{os.getpid()}")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            procs.append((subprocess.Popen(
+            procs.append((src.stem, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), tmp, so))
-    failures = []
-    for proc, tmp, so in procs:  # wait for every process before raising
+    done = {}
+
+    def wait(stem, proc):
         stdout, stderr = proc.communicate()
+        done[stem] = (stdout, stderr, time.monotonic() - t0)
+
+    waiters = [threading.Thread(target=wait, args=(stem, proc)) for stem, proc, _, _ in procs]
+    for w in waiters:
+        w.start()
+    for w in waiters:  # wait for every process before raising
+        w.join()
+    if procs:
+        build_seconds.clear()
+    failures = []
+    for stem, proc, tmp, so in procs:
+        stdout, stderr, build_seconds[stem] = done[stem]
         if proc.returncode != 0:
             failures.append(f"nvcc failed ({proc.returncode}) on {so.name}:\n{stdout}\n{stderr}")
         else:

@@ -7,9 +7,11 @@ fold of ``_kind_all_chunks`` / ``_kind_sel_chunks`` compute.  For tensors on
 the CPU it runs the plain version, `assembly_fold_torch`
 (``ops.modules.assembly_torch`` and the same fold, a pair at a time); for
 tensors on a CUDA device it launches ``csrc/assembly.cu`` once for all pairs
-(counted as ``assembly``, or ``assembly_pairs`` when P > 1).  The kernel
-equals the plain version bit for bit, values in [2^29, DEV_INF] included.
-Nothing falls back: a build or launch error raises.
+(counted as ``assembly``, or ``assembly_pairs`` when P > 1).  B holds the
+L_read + 1 levels the windows read (``KindModule.L_read``), what the module
+scan gives over ``KindModule.level_tables``.  The kernel equals the plain
+version bit for bit, values in [2^29, DEV_INF] included.  Nothing falls
+back: a build or launch error raises.
 """
 
 from __future__ import annotations
@@ -27,22 +29,22 @@ from .modules import assembly_torch
 def _check_bucket(kms):
     """Raise unless every pair's kind module has the bucket's shapes and
     segments (all but the real anti length are the bucket's)."""
-    k0 = kms[0]
-    key = (k0.same_seq, k0.L, k0.n_p, k0.S, k0.s_lo, k0.plans, k0.ldiff0, k0.anti_lo,
-           k0.anti_hi, k0.padded)
-    for km in kms[1:]:
-        if (km.same_seq, km.L, km.n_p, km.S, km.s_lo, km.plans, km.ldiff0, km.anti_lo,
-                km.anti_hi, km.padded) != key:
-            raise ValueError("assembly_fold: the pairs of a launch must share the kind's "
-                             "shapes and segments")
+    def key(km):
+        return (km.same_seq, km.L, km.L_read, km.n_p, km.S, km.s_lo, km.plans, km.ldiff0,
+                km.anti_lo, km.anti_hi, km.padded)
+
+    if any(key(km) != key(kms[0]) for km in kms[1:]):
+        raise ValueError("assembly_fold: the pairs of a launch must share the kind's "
+                         "shapes and segments")
 
 
 def assembly_fold(Bs, A_chunks, kms, ts, slabs, dest_base: int, dest=None):
     """Assemble one chunk for P pairs and fold it into their slabs, in place.
 
-    For pair z: `Bs[z]` its module exit minima, (L+1, n_p+1, C) for a cross
-    kind or (L+1, n_p+1) for a same-sequence kind (any strides); `A_chunks[z]`
-    its (n_p+1, C) entry columns; `kms[z]` and `ts[z]` its kind module and
+    For pair z: `Bs[z]` its module exit minima at the levels the assembly
+    reads, (L_read+1, n_p+1, C) for a cross kind or (L_read+1, n_p+1) for a
+    same-sequence kind (any strides); `A_chunks[z]` its (n_p+1, C) entry
+    columns; `kms[z]` and `ts[z]` its kind module and
     that module's tables on the device; `slabs[z]` its (n_p+1, width) slab.
     Column c's s-slab lands at ``dest_base + c + s`` (the chunked route's
     diagonal min-fold) or, with `dest` a (P, C) host array of entry columns,
@@ -53,7 +55,7 @@ def assembly_fold(Bs, A_chunks, kms, ts, slabs, dest_base: int, dest=None):
     _check_bucket(kms)
     km0 = kms[0]
     n_rows, C = A_chunks[0].shape
-    L, S = km0.L, km0.S
+    L, S = km0.L_read, km0.S
     dev = A_chunks[0].device
     b_shape = (L + 1, n_rows) + (() if km0.same_seq else (C,))
     for z in range(P):
@@ -134,7 +136,7 @@ def _launch(Bs, A_chunks, kms, ts, slabs, dest_base, dest, lo, span):
         ctypes.c_void_p(ptrs.ctypes.data), ctypes.c_void_p(strides.ctypes.data),
         ctypes.c_void_p(ints.ctypes.data),
         ctypes.c_void_p(segs.ctypes.data) if segs.size else None, len(km0.plans), P,
-        n_rows, C, km0.L, km0.S, km0.s_lo, km0.anti_lo, int(km0.ldiff0), int(km0.same_seq),
-        _build.stream_ptr(dev)))
+        n_rows, C, km0.L_read, km0.S, km0.s_lo, km0.anti_lo, int(km0.ldiff0),
+        int(km0.same_seq), _build.stream_ptr(dev)))
     _build.check(code, name)
     _build.launches[name] += 1

@@ -5,7 +5,10 @@ Counterpart of ``tsalign_tpu/ops/jax_modules.py``.  Per kind (pk, sk, dk):
   1. the module scan over the secondary length l (`module_scan_torch`, the
      plain form of ``_module_scan_xla``; cross kinds run the CUDA kernel
      through ``ops.module_scan.module_scan`` on the card), emitting the
-     per-level exit minima B;
+     per-level exit minima B, over the levels 0..L_read that the assembly's
+     windows read (`KindModule.level_tables`; the JAX package scans all L:
+     its B's first L_read + 1 levels are these, and no window reads the
+     others);
   2. the reentry assembly (`assembly_torch`, the plain form of
      ``_assembly``): shear D3[p2 - l, e, l] + length(l), per finite ldiff
      segment a sliding-window min over s with the anti-gap walk bands and
@@ -57,6 +60,8 @@ from .primary import pad_table_for_poison
 from .tsm_modules import KindSpec, _dense_or_inf
 
 _DK = ("Forward", "Reverse")
+# The module scan's per-level tables (row l: what level l consumes).
+LEVEL_NAMES = ("pchar_l", "pmask_l", "io_l", "ie_l")
 
 
 def _finite_segments(fn: CostFunction, lo: int, hi: int) -> List[Tuple[int, int, int]]:
@@ -221,6 +226,10 @@ class KindModule:
         t_max = max([s_hi - sg[0] for sg in segs] + [s_hi, L])
         self.OFF = -t_min
         self.LL = t_max - t_min + 1
+        # The last level of B that a window or the ldiff = 0 term reads
+        # (t_max without its L term): the module scan runs L_read levels
+        # (`level_tables`) and the assembly takes B of L_read + 1 levels.
+        self.L_read = max(0, min(L, max([s_hi - sg[0] for sg in segs] + [s_hi])))
         Al, Ah = anti_lo, anti_hi
         plans = []
         for a, b2, c in segs:
@@ -270,18 +279,26 @@ class KindModule:
             self._tables[key] = t
         return self._tables[key]
 
+    def level_tables(self, device) -> dict:
+        """The module scan's per-level tables on `device`, cut to the
+        L_read levels whose exit minima the assembly reads: a scan over
+        them gives the first L_read + 1 levels of the full scan's B."""
+        t = self.tables(device)
+        return {n: t[n][: self.L_read] for n in LEVEL_NAMES}
+
     def same_module(self, device) -> torch.Tensor:
         """Intra-sequence kinds: the module scan is independent of the entry
-        field, so it runs once per kind and device (``_same_module_jit``),
-        on the card as the kernel's diagonal mode."""
+        field, so it runs once per kind and device (``_same_module_jit``,
+        cut to L_read + 1 levels), on the card as the kernel's diagonal
+        mode."""
         from .module_scan import module_scan_diag
 
         key = device_key(device)
         if key not in self._b_pre:
             t = self.tables(device)
+            lv = self.level_tables(device)
             self._b_pre[key] = module_scan_diag(
-                t["seed"], t["lut"], t["sdo"], t["sde"], t["pchar_l"],
-                t["pmask_l"], t["io_l"], t["ie_l"],
+                t["seed"], t["lut"], t["sdo"], t["sde"], *(lv[n] for n in LEVEL_NAMES),
                 fwd=self.dk == 0, allow_sdel=self.allow_sdel,
             )
         return self._b_pre[key]
@@ -393,26 +410,28 @@ def assembly_torch(B, A_chunk, km: KindModule, t: dict, separate_cols: bool = Fa
     """Reentry assembly of one chunk (static-plan branch of ``_assembly``;
     a poison-padded problem's positive segments take `_positive_padded`).
 
-    B (L+1, n_p+1, C) for cross kinds or (L+1, n_p+1) for same-sequence
-    kinds; A_chunk (n_p+1, C).  Returns R_pad (n_p+1, C + S - 1) for the
+    B (L'+1, n_p+1, C) for cross kinds or (L'+1, n_p+1) for same-sequence
+    kinds, L' >= km.L_read (its levels above L_read are not read); A_chunk
+    (n_p+1, C).  Returns R_pad (n_p+1, C + S - 1) for the
     columns j2 = e0 + s_lo ... e0 + C - 1 + s_hi; with `separate_cols`, the
     slab U (n_p+1, C, S) before the diagonal min-fold, U[p, c, s] landing at
     j2 = e_c + s_lo + s (``_assembly``'s compact-column branch)."""
-    L, n_p, S = km.L, km.n_p, km.S
+    L, n_p, S = km.L_read, km.n_p, km.S
     C = A_chunk.shape[1]
     dev = A_chunk.device
+    B = B[: L + 1]
     if km.same_seq:
         D3 = sat_add(A_chunk[:, :, None], B.T[:, None, :])
     else:
-        D3 = B.permute(1, 2, 0)  # (n_p+1, C, L+1)
-    D3 = sat_add(D3, t["length_vec"][None, None, :])
+        D3 = B.permute(1, 2, 0)  # (n_p+1, C, L_read+1)
+    D3 = sat_add(D3, t["length_vec"][None, None, : L + 1])
 
     # shear: D3s[p2, e, l] = D3[p2 - l, e, l] (INF where p2 - l < 0)
     src_row = (torch.arange(n_p + 1, device=dev)[:, None]
                - torch.arange(L + 1, device=dev)[None, :])  # (n_p+1, L+1)
     idx = src_row.clamp_min(0)[:, None, :].expand(n_p + 1, C, L + 1)
     D3s = torch.where((src_row >= 0)[:, None, :], torch.gather(D3, 0, idx), DEV_INF)
-    D3pad = full_inf((n_p + 1, C, km.LL), dev)
+    D3pad = full_inf((n_p + 1, C, km.LL), dev)  # DEV_INF past level L_read
     D3pad[:, :, km.OFF : km.OFF + L + 1] = D3s
 
     rows = torch.arange(n_p + 1, device=dev)[:, None, None]
@@ -451,14 +470,15 @@ def assembly_torch(B, A_chunk, km: KindModule, t: dict, separate_cols: bool = Fa
     )
 
 
-def _kind_levels(kms, ts):
-    """The per-level tables of a cross kind stacked over the pairs, and the
-    skipping mode's threshold for all of them (None, 0 for a same-sequence
-    kind, whose module is the cached diagonal-mode scan)."""
+def _kind_levels(kms, dev):
+    """The per-level tables of a cross kind (its L_read levels) stacked over
+    the pairs, and the skipping mode's threshold for all of them (None, 0
+    for a same-sequence kind, whose module is the cached diagonal-mode
+    scan)."""
     if kms[0].same_seq:
         return None, 0
-    names = ("pchar_l", "pmask_l", "io_l", "ie_l")
-    levels = {n: torch.stack([t[n] for t in ts]) for n in names}
+    lvs = [km.level_tables(dev) for km in kms]
+    levels = {n: torch.stack([lv[n] for lv in lvs]) for n in LEVEL_NAMES}
     skips = [km.skip_from for km in kms]
     # each pair's threshold is sound for it, and so is any larger one
     return levels, 0 if 0 in skips else max(skips)
@@ -483,7 +503,7 @@ def _chunk_modules(kms, tabs, live, A_chunks, sl: slice, levels, skip_from):
         torch.stack([tabs[i]["lut"][:, sl] for i in live]),
         torch.stack([tabs[i]["sdo"][sl] for i in live]),
         torch.stack([tabs[i]["sde"][sl] for i in live]),
-        *(levels[n].index_select(0, idx) for n in ("pchar_l", "pmask_l", "io_l", "ie_l")),
+        *(levels[n].index_select(0, idx) for n in LEVEL_NAMES),
         fwd=km0.dk == 0, allow_sdel=km0.allow_sdel, skip_from=skip_from,
     )
 
@@ -506,7 +526,7 @@ def kind_all_chunks(kms, A_b, eb_b, PAD: int, width: int):
     C = km0.chunk
     ts = [km.tables(dev) for km in kms]
     slabs = [None] * len(kms)
-    levels, skip_from = _kind_levels(kms, ts)
+    levels, skip_from = _kind_levels(kms, dev)
     for ci in range(eb_b.shape[1]):
         live = [i for i in range(len(kms)) if eb_b[i, ci] >= 0]
         if not live:
@@ -551,7 +571,7 @@ def kind_sel_chunks(kms, A_b, e_sel_b, PAD: int, OUTW: int, n_live=None):
     e_sel = torch.from_numpy(e_sel_host).to(dev)
     Kb = e_sel.shape[1]
     ts = [km.tables(dev) for km in kms]
-    levels, skip_from = _kind_levels(kms, ts)
+    levels, skip_from = _kind_levels(kms, dev)
     A_sel = [A_b[i].index_select(1, e_sel[i]) for i in range(len(kms))]
     if km0.same_seq:
         tabs = ts

@@ -85,7 +85,8 @@ from ..ops.common import (
 )
 from ..ops.module_scan import module_scan_diag
 from .. import engine as _engine
-from ..ops.modules import KindModule, fold_kind_cells, kind_all_chunks, kind_sel_chunks
+from ..ops.modules import (LEVEL_NAMES, KindModule, fold_kind_cells, kind_all_chunks,
+                           kind_sel_chunks)
 from ..ops.primary import PrimarySweep
 from ..ops.primary_sweep import GAP_NONE
 from ..ops.sweep import sweep_flanked, sweep_flankless
@@ -131,8 +132,10 @@ def _same_module_batch(kms, device):
     B_pre lands in its kind module's cache."""
     km0 = kms[0]
     ts = [km.tables(device) for km in kms]
-    names = ("seed", "lut", "sdo", "sde", "pchar_l", "pmask_l", "io_l", "ie_l")
+    lvs = [km.level_tables(device) for km in kms]
+    names = ("seed", "lut", "sdo", "sde")
     B = module_scan_diag(*(torch.stack([t[n] for t in ts]) for n in names),
+                         *(torch.stack([lv[n] for lv in lvs]) for n in LEVEL_NAMES),
                          fwd=km0.dk == 0, allow_sdel=km0.allow_sdel)
     for i, km in enumerate(kms):
         km._b_pre[device_key(device)] = B[i]
