@@ -1,0 +1,12 @@
+"""The module scan's share of its roofline: the least time of every launch
+of the window, from the work its inputs need (portbench/harness/roofline.py),
+over the device time of the module_scan_kernel launches in the trace."""
+
+from harness.trace import SCAN_KERNEL
+
+
+def read(run):
+    device_s = run.kernel_s.get(SCAN_KERNEL, 0.0)
+    if run.scan_least_s is None or device_s <= 0:
+        return None
+    return 100.0 * run.scan_least_s / device_s
