@@ -210,7 +210,7 @@ import torch
 # Python puts this script's directory first on sys.path, so the package
 # imports from the checkout it sits in (and fails where it sits alone).
 import tsalign_tpu_torch
-from tsalign_tpu_torch import _build
+from tsalign_tpu_torch import _build, tracing
 from tsalign_tpu_torch.alignment import Alignment, TemplateSwitchEntrance, TemplateSwitchExit
 from tsalign_tpu_torch.alphabet import get_alphabet
 from tsalign_tpu_torch.config import TemplateSwitchConfig
@@ -376,15 +376,43 @@ def device_ms(fn, reps: int, kernel: str) -> float:
 
 def _device_ms(fn, reps, kernel):
     fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with KernelClock((kernel,)) as clock:
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages() if kernel in e.key)
-    if us <= 0:
+    if clock.ms.get(kernel, 0) <= 0:
         raise AssertionError(f"device_ms: the trace holds no device time of {kernel}")
-    return us / reps / 1e3
+    return clock.ms[kernel] / reps
+
+
+# The port's kernels, by the name of their function in the profiler's trace.
+PORT_KERNELS = ("sweep_kernel", "skew_in_kernel", "skew_out_kernel", "module_scan_kernel",
+                "assembly_kernel")
+
+
+class KernelClock:
+    """Device milliseconds over a block of the kernels whose names hold one
+    of `kernels`, by that name (`ms`), from torch.profiler's trace: the
+    kernels' own time, not the host's call."""
+
+    def __init__(self, kernels=PORT_KERNELS):
+        self.kernels = kernels
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        self._prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self._prof.__exit__(*exc)
+        self.ms = collections.Counter()
+        for e in self._prof.key_averages():
+            name = next((k for k in self.kernels if k in e.key), None)
+            if name is not None and e.device_time_total > 0:
+                self.ms[name] += e.device_time_total / 1e3
+        self.ms = dict(self.ms)
+        return False
 
 
 def under_load(fn):
@@ -1401,18 +1429,15 @@ def phase5():
     r, q = planted_pair(rng, 500, 40, 5, True, q_len=420)
     al = get_alphabet("dna-n")
     cfg = TemplateSwitchConfig.default(al)
-    from tsalign_tpu_torch.parallel import fused_rounds
-
-    fused_rounds.control_reads.clear()
     torch.cuda.reset_peak_memory_stats()
-    with RouteMeter() as meter:
+    with RouteMeter() as meter, Traced() as traced:
         res = tsalign_tpu_torch.align(r, q, device=DEV, reference_name=MAIN_NAMES[0],
                                       query_name=MAIN_NAMES[1])
     wall = meter.wall
     counts = meter.launches
     # the facade's default on the card, the fused loop: phase 10 (c) holds
     # this run against the host loop
-    fused_run = dict(meter=meter, control_reads=control_reads_by_round(),
+    fused_run = dict(meter=meter, fused_reads=fused_reads_by_round(traced.spans),
                      peak_mem_bytes=torch.cuda.max_memory_allocated())
     cost = res.stats()["cost"]
     priced = price_alignment(cfg, al.encode(r), al.encode(q), res.result.alignment)
@@ -1708,21 +1733,16 @@ def phase7_batch(flanked):
         l_eff = min(int(lw) if lw is not None else n, n)
         return cfg.can_rewind() and max(0, rounds[i] - 1) * l_eff >= K
 
-    from tsalign_tpu_torch.parallel import fused_rounds
-
-    fused_rounds.control_reads.clear()
     torch.cuda.reset_peak_memory_stats()
     _build.launches.clear()
-    _build.kernel_events = []
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    records = align_pairs(cfg, pairs, device=DEV, on_batch=on_batch)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    kernel_ms = _build.kernel_ms()
-    _build.kernel_events = None
+    with KernelClock() as clock, Traced() as traced:
+        t0 = time.monotonic()
+        records = align_pairs(cfg, pairs, device=DEV, on_batch=on_batch)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    device_ms_by_kernel = clock.ms
     counts = dict(_build.launches)
-    per_round, largest = control_reads_by_round()
+    per_round, largest = fused_reads_by_round(traced.spans)
     peak = torch.cuda.max_memory_allocated()
     costs = []
     for (r, q), rec in zip(pairs, records):
@@ -1759,13 +1779,13 @@ def phase7_batch(flanked):
         n_r=[len(r) for r, _ in pairs], n_q=[len(q) for _, q in pairs], costs=costs,
         rounds=[rounds[i] for i in range(len(pairs))],
         redone_by_the_single_pair_engine=[i for i in range(len(pairs)) if redone(i)], wall_s=wall,
-        wall_s_a_pair=wall / len(pairs), repriced=True, kernel_device_ms=kernel_ms,
-        kernel_device_share=sum(kernel_ms.values()) / 1e3 / wall, launches=counts,
-        control_reads_per_round=per_round, largest_control_read=largest, peak_mem_bytes=peak,
+        wall_s_a_pair=wall / len(pairs), repriced=True, kernel_device_ms=device_ms_by_kernel,
+        kernel_device_share=sum(device_ms_by_kernel.values()) / 1e3 / wall, launches=counts,
+        fused_reads_per_round=per_round, largest_control_read=largest, peak_mem_bytes=peak,
         single_pair=singles)
     return counts, dict(records=records, rounds=[rounds[i] for i in range(len(pairs))],
-                        wall_s=wall, kernel_device_ms=kernel_ms, launches=counts,
-                        control_reads_per_round=per_round, largest_control_read=largest,
+                        wall_s=wall, kernel_device_ms=device_ms_by_kernel, launches=counts,
+                        fused_reads_per_round=per_round, largest_control_read=largest,
                         peak_mem_bytes=peak)
 
 
@@ -1797,15 +1817,12 @@ def phase8_chain():
     cfg = chain_config()
     ref, qry, expected, planted = chain_construction(CHAIN_LENGTH)
     _build.launches.clear()
-    _build.kernel_events = []
-    with ChainMeter() as meter:
-        torch.cuda.synchronize()
+    with ChainMeter() as meter, KernelClock() as clock:
         t0 = time.monotonic()
         res = tsalign_tpu_torch.chain_align(cfg, ref, qry, target_segment=1024, device=DEV)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    kernel_ms = _build.kernel_ms()
-    _build.kernel_events = None
+    device_ms_by_kernel = clock.ms
     counts = dict(_build.launches)
     if res.cost != expected:
         raise AssertionError(f"chain: cost {res.cost}, constructed optimum {expected}")
@@ -1824,8 +1841,10 @@ def phase8_chain():
     say(8, chain=CHAIN_LENGTH, cost=res.cost, expected=expected, repriced=True,
         template_switches=entrances, segments=res.segments, anchors=res.anchors,
         anchors_native=res.anchors_native, cuts_rejoined=res.cuts_rejoined,
-        numpy_fallbacks=res.numpy_fallbacks, launches=counts, kernel_device_ms=kernel_ms,
-        kernel_device_share=sum(kernel_ms.values()) / 1e3 / wall, **meter.summary(wall))
+        numpy_fallbacks=res.numpy_fallbacks, launches=counts,
+        kernel_device_ms=device_ms_by_kernel,
+        kernel_device_share=sum(device_ms_by_kernel.values()) / 1e3 / wall,
+        **meter.summary(wall))
     return counts, meter, res.alignment.cigar()
 
 
@@ -1932,12 +1951,10 @@ def record_lines(text):
 
 def run_cli(step, argv):
     """One run of the port's command line in this process: its printed lines,
-    the launches it made (counts set to 0 just before), the kernels' device
-    ms by CUDA events and its wall."""
+    the launches it made (counts set to 0 just before) and its wall."""
     from tsalign_tpu_torch.cli import main as cli_main
 
     _build.launches.clear()
-    _build.kernel_events = []
     out = io.StringIO()
     torch.cuda.synchronize()
     t0 = time.monotonic()
@@ -1945,11 +1962,9 @@ def run_cli(step, argv):
         rc = cli_main(argv)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    kernel_ms = _build.kernel_ms()
-    _build.kernel_events = None
     if rc != 0:
         raise AssertionError(f"cli {step}: {argv[0]} exited {rc}: {out.getvalue()}")
-    return out.getvalue(), dict(_build.launches), kernel_ms, wall
+    return out.getvalue(), dict(_build.launches), wall
 
 
 def printed_cost(step, text):
@@ -1963,7 +1978,7 @@ def cli_align_main_pair(step, d, argv, facade_record, kernels):
     """Align one main pair through the command line; its record must equal
     the facade's (phase 5 or 6) and the kernels must launch."""
     out_path = os.path.join(d, f"{step}.toml")
-    text, counts, kernel_ms, wall = run_cli(step, argv + ["-o", out_path])
+    text, counts, wall = run_cli(step, argv + ["-o", out_path])
     with open(out_path) as f:
         record = f.read()
     if record_lines(record) != record_lines(facade_record):
@@ -1972,7 +1987,7 @@ def cli_align_main_pair(step, d, argv, facade_record, kernels):
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"cli {step}: kernel {name} was not launched")
     say(9, step=step, wall_s=wall, cost=printed_cost(step, text), record_equal=True,
-        launches=counts, kernel_device_ms=kernel_ms)
+        launches=counts)
     return out_path, counts
 
 
@@ -2021,7 +2036,7 @@ def phase9(main_pair, flanked_pair, chain_cigar):
         with open(os.path.join(cfg_dir, "config.tsa"), "w") as f:
             f.write(cfg.display())
         max_n = infer_max_n(CHAIN_LENGTH, CHAIN_LENGTH)
-        text, _, _, wall = run_cli("c_preprocess", ["preprocess", "-c", cfg_dir,
+        text, _, wall = run_cli("c_preprocess", ["preprocess", "-c", cfg_dir,
                                                     "--cache-directory", cache,
                                                     "--max-n", str(max_n)])
         say(9, step="c_preprocess", wall_s=wall, max_n=max_n, printed=text.strip(),
@@ -2031,7 +2046,7 @@ def phase9(main_pair, flanked_pair, chain_cigar):
         write_fasta(chain_ref, ("reference chain", al.decode(ref)))
         write_fasta(chain_qry, ("query chain", al.decode(qry)))
         chain = os.path.join(d, "chain.toml")
-        text, counts, kernel_ms, wall = run_cli(
+        text, counts, wall = run_cli(
             "c_chain", ["align", "-r", chain_ref, "-q", chain_qry, "-c", cfg_dir,
                         "--alignment-method", "a-star-chain-ts", "--cache-directory", cache,
                         "--force-no-preprocessing", "-o", chain])
@@ -2052,17 +2067,17 @@ def phase9(main_pair, flanked_pair, chain_cigar):
                 raise AssertionError(f"cli chain: kernel {name} was not launched")
         say(9, step="c_chain", wall_s=wall, cost=cost, expected=expected, repriced=priced,
             cigar_equal=True, record_bytes=os.path.getsize(chain), record_parse_s=parse_s,
-            launches=counts, kernel_device_ms=kernel_ms)
+            launches=counts)
 
         # (d) show on the three records, and -n with a no-TS record
         nots = os.path.join(d, "nots.toml")
-        text, _, _, wall = run_cli("d_no_ts", ["align", "-r", ref_fa, "-q", qry_fa, "--no-ts",
+        text, _, wall = run_cli("d_no_ts", ["align", "-r", ref_fa, "-q", qry_fa, "--no-ts",
                                                "-o", nots])
         say(9, step="d_no_ts", wall_s=wall, cost=printed_cost("d_no_ts", text))
         for name, path, extra in (("flankless", flankless, ["-n", nots]),
                                   ("flanked", flanked, []), ("chain", chain, [])):
             svg = os.path.join(d, f"{name}.svg")
-            text, _, _, wall = run_cli(f"d_show_{name}", ["show", "-i", path, "-s", svg,
+            text, _, wall = run_cli(f"d_show_{name}", ["show", "-i", path, "-s", svg,
                                                           "-a", "-c", "-e"] + extra)
             if "Showing template switch" not in text or (extra and "No-ts CIGAR" not in text):
                 raise AssertionError(f"cli show {name}: no template switch shown")
@@ -2080,18 +2095,19 @@ def phase9(main_pair, flanked_pair, chain_cigar):
         small = os.path.join(d, "small.fa")
         write_fasta(small, ("reference", p["reference"]), ("query", p["query"]))
         prof = os.path.join(d, "prof")
-        text, counts, kernel_ms, wall = run_cli("e_profile", ["align", "-p", small,
-                                                              "--profile", prof])
+        text, counts, wall = run_cli("e_profile", ["align", "-p", small, "--profile", prof])
         traces = [n for n in os.listdir(prof) if n.endswith(".pt.trace.json")]
         if len(traces) != 1:
             raise AssertionError(f"cli profile: trace files {os.listdir(prof)}")
         with open(os.path.join(prof, traces[0])) as f:
             trace = f.read()
-        named = {k: k in trace for k in ("sweep_kernel", "module_scan_kernel")}
+        # the kernels, and the program's spans over them
+        named = {k: k in trace for k in ("sweep_kernel", "module_scan_kernel", "engine.sweep",
+                                         "rounds.reentry")}
         if not all(named.values()) or printed_cost("e_profile", text) != p["cost"]:
             raise AssertionError(f"cli profile: kernels named {named}, {text!r}")
         say(9, step="e_profile", wall_s=wall, cost=p["cost"], trace_bytes=len(trace),
-            kernels_named=named, launches=counts, kernel_device_ms=kernel_ms)
+            kernels_named=named, launches=counts)
     return launches
 
 
@@ -2099,8 +2115,7 @@ class RouteMeter:
     """What one run through the rounds loop did: every engine pass (its
     rounds and route log), the assembly calls (a pair's assembly of a chunk
     each, as many as the assembly kernel's launches carry pairs), the
-    launches (counts set to 0 on entry) and the kernels' device ms by CUDA
-    events."""
+    launches (counts set to 0 on entry) and its wall."""
 
     def __enter__(self):
         from tsalign_tpu_torch.ops import assembly
@@ -2125,7 +2140,6 @@ class RouteMeter:
         wrap(assembly, "assembly_fold",
              lambda a, out: setattr(self, "assembly_calls", self.assembly_calls + len(a[2])))
         _build.launches.clear()
-        _build.kernel_events = []
         torch.cuda.synchronize()
         self.t0 = time.monotonic()
         return self
@@ -2133,8 +2147,6 @@ class RouteMeter:
     def __exit__(self, *exc):
         torch.cuda.synchronize()
         self.wall = time.monotonic() - self.t0
-        self.kernel_ms = _build.kernel_ms()
-        _build.kernel_events = None
         self.launches = dict(_build.launches)
         for owner, attr, inner in reversed(self._undo):
             setattr(owner, attr, inner)
@@ -2155,7 +2167,7 @@ class RouteMeter:
             compact_mean_live_cols=(sum(len(e["e_live"]) for e in compact) / len(compact)
                                     if compact else None),
             compact_mean_Kb=sum(e["Kb"] for e in compact) / len(compact) if compact else None,
-            kernel_device_ms=self.kernel_ms, launches=self.launches)
+            launches=self.launches)
 
 
 def cold_memos():
@@ -2359,16 +2371,38 @@ def differing_keys(a: str, b: str) -> set:
     return {x.split("=")[0].strip() for x, y in zip(lines_a, lines_b) if x != y}
 
 
-def control_reads_by_round():
-    """{"loop:round": reads} of the fused loops since the list was cleared,
-    and the largest read's elements."""
-    from tsalign_tpu_torch.parallel import fused_rounds
+class Traced:
+    """The port's spans (`spans`) over a block, with its tracing on."""
 
-    per_round = collections.Counter(f"{loop}:{k}" for loop, k, _ in fused_rounds.control_reads)
-    return dict(per_round), max((n for *_, n in fused_rounds.control_reads), default=0)
+    def __enter__(self):
+        tracing.take()
+        tracing.enable()
+        return self
+
+    def __exit__(self, *exc):
+        tracing.disable()
+        self.spans, self.counts = tracing.take()
+        return False
 
 
-def check_control_reads(per_round, largest, n_pairs, n_max, chunk=64):
+def fused_reads_by_round(spans):
+    """{"loop:round": reads} of the fused loops' control reads (the
+    `device.read` spans with a round, by their `rounds.fused` span, the
+    loops numbered from 1 in order) and the largest read's elements."""
+    loops = {i: n for n, i in enumerate(
+        (i for i, s in enumerate(spans) if s[0] == "rounds.fused"), 1)}
+    per_round, largest = collections.Counter(), 0
+    for name, _, _, parent, _, attrs in spans:
+        if name != "device.read" or "round" not in attrs:
+            continue
+        while parent >= 0 and parent not in loops:
+            parent = spans[parent][3]
+        per_round[f"{loops.get(parent, 0)}:{attrs['round']}"] += 1
+        largest = max(largest, attrs["numel"])
+    return dict(per_round), largest
+
+
+def check_fused_reads(per_round, largest, n_pairs, n_max, chunk=64):
     """At most two control reads a round, each at most the all-done flag and
     eight kinds' per-pair chunk liveness: no field crossed to the host."""
     if per_round and max(per_round.values()) > 2:
@@ -2393,13 +2427,13 @@ def phase10_fused(main_pair, host_record, batch7, fused_run):
     differ = differing_keys(record, host_record)
     if not differ <= FUSED_MAY_DIFFER:
         raise AssertionError(f"fused {name}: the record differs from the host loop's in {differ}")
-    per_round, largest = fused_run["control_reads"]
-    check_control_reads(per_round, largest, 1, max(len(r), len(q)))
+    per_round, largest = fused_run["fused_reads"]
+    check_fused_reads(per_round, largest, 1, max(len(r), len(q)))
     say(10, step="c_fused_single_pair", pair=name, run="phase 5", loops=loops,
-        record_differs_in=sorted(differ), control_reads_per_round=per_round,
+        record_differs_in=sorted(differ), fused_reads_per_round=per_round,
         largest_control_read=largest, peak_mem_bytes=fused_run["peak_mem_bytes"],
         **meter.summary())
-    check_control_reads(batch7["control_reads_per_round"], batch7["largest_control_read"],
+    check_fused_reads(batch7["fused_reads_per_round"], batch7["largest_control_read"],
                         len(batch7["records"]), 512)
     return {"routes_fused": meter.launches}
 
@@ -2567,7 +2601,7 @@ def phase11_sp_sweeps(main_pairs):
                          eng._build_kinds(eng._sdel_budget(best)), best=best)
         for what, seeds in (("root", root), ("round 1", next_seeds(root, R))):
             want = sweep.sweep(seeds)
-            kernel_ms = cuda_ms(lambda: sweep.sweep(seeds), 5)
+            sweep_ms = cuda_ms(lambda: sweep.sweep(seeds), 5)
             for mesh_name, mesh in meshes("sp"):
                 torch.cuda.synchronize()
                 t0 = time.monotonic()
@@ -2583,7 +2617,7 @@ def phase11_sp_sweeps(main_pairs):
                     raise AssertionError(f"sp sweep {name} {what} over {mesh_name}: the field "
                                          "differs from the sweep kernel's")
                 say(11, step="b_sp_sweep", pair=name, F=sweep.F, seeds=what, mesh=mesh_name,
-                    shape=list(want.shape), equal=True, wall_s=wall, kernel_ms=kernel_ms)
+                    shape=list(want.shape), equal=True, wall_s=wall, sweep_ms=sweep_ms)
     rng = np.random.default_rng(4000)
     r, q = planted_pair(rng, 4000, 40, 20, True, q_len=4000)
     cfg = TemplateSwitchConfig.default(al)
@@ -2591,7 +2625,7 @@ def phase11_sp_sweeps(main_pairs):
     seeds = torch.full((1, 3, len(r) + 1, len(q) + 1), DEV_INF, dtype=torch.int32, device=DEV)
     seeds[0, GAP_NONE, 0, 0] = 0
     want = sweep.sweep(seeds)
-    kernel_ms = cuda_ms(lambda: sweep.sweep(seeds), 3)
+    sweep_ms = cuda_ms(lambda: sweep.sweep(seeds), 3)
     mesh_name, mesh = meshes("sp", shards=(4,))[0]
     torch.cuda.synchronize()
     t0 = time.monotonic()
@@ -2601,7 +2635,7 @@ def phase11_sp_sweeps(main_pairs):
     if not torch.equal(got, want[0]):
         raise AssertionError("sp sweep 4000 x 4000: the field differs from the sweep kernel's")
     say(11, step="b_sp_sweep_4000", mesh=mesh_name, shape=list(want.shape), equal=True,
-        wall_s=wall, kernel_ms=kernel_ms, kernel_over_sp=kernel_ms / 1e3 / wall)
+        wall_s=wall, sweep_ms=sweep_ms, sweep_over_sp=sweep_ms / 1e3 / wall)
 
 
 def phase11_sp_reentry(main_pair):
@@ -2687,7 +2721,7 @@ def phase11_data_axis(batch7):
         costs=[x.result.cost for x in records], rounds_mesh=mesh_rounds,
         rounds_fused=batch7["rounds"], record_differs_in=sorted(differ),
         fused_wall_s=batch7["wall_s"], mesh_wall_s=meter.wall,
-        fused_kernel_device_ms=batch7["kernel_device_ms"], mesh_kernel_device_ms=meter.kernel_ms,
+        fused_kernel_device_ms=batch7["kernel_device_ms"],
         fused_peak_mem_bytes=batch7["peak_mem_bytes"],
         mesh_peak_mem_bytes=torch.cuda.max_memory_allocated(),
         fused_launches=batch7["launches"], mesh_launches=meter.launches,

@@ -13,8 +13,8 @@ and cost-only probes, the per-segment engine and what the verification
 pass's own logic takes (``chip_smoke.ChainMeter``); the batches by mode,
 bucket and pair count with their rounds; segments, anchors, whether the
 anchors came from the native kernel, rejoined cuts; the kernels' launches and
-device milliseconds by CUDA events (``_build.kernel_events``) and their share
-of the wall; and whether the cost equals the constructed optimum and the
+device milliseconds from torch.profiler's trace (``chip_smoke.KernelClock``)
+and their share of the wall; and whether the cost equals the constructed optimum and the
 alignment reprices to it.  The first line is the card's name and power limit.
 Imports only torch and the port.
 """
@@ -22,6 +22,7 @@ Imports only torch and the port.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -36,7 +37,7 @@ def run_one(n: int, device: str, target_segment: int) -> dict:
     import torch
 
     import tsalign_tpu_torch
-    from chip_smoke import ChainMeter, chain_config, chain_construction
+    from chip_smoke import ChainMeter, KernelClock, chain_config, chain_construction
     from tsalign_tpu_torch import _build
     from tsalign_tpu_torch.alignment import is_template_switch_entrance
     from tsalign_tpu_torch.pricing import price_alignment
@@ -45,16 +46,16 @@ def run_one(n: int, device: str, target_segment: int) -> dict:
     ref, qry, expected, n_ts = chain_construction(n)
     if device == "cuda":
         _build.library()  # build (or load) the kernels before the clock starts
-        _build.kernel_events = []
     _build.launches.clear()
-    with ChainMeter() as meter:
+    clock = KernelClock() if device == "cuda" else contextlib.nullcontext()
+    with ChainMeter() as meter, clock:
         t0 = time.monotonic()
         res = tsalign_tpu_torch.chain_align(cfg, ref, qry, target_segment=target_segment,
                                             device=device)
         if device == "cuda":
             torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    kernel_ms = _build.kernel_ms() if device == "cuda" else {}
+    device_ms_by_kernel = clock.ms if device == "cuda" else {}
     entrances = sum(1 for _, t in res.alignment.entries if is_template_switch_entrance(t))
     return dict(
         n=n, device=device, cost=res.cost, expected=expected,
@@ -62,8 +63,8 @@ def run_one(n: int, device: str, target_segment: int) -> dict:
         template_switches=entrances, planted=n_ts, segments=res.segments,
         anchors=res.anchors, anchors_native=res.anchors_native,
         cuts_rejoined=res.cuts_rejoined, numpy_fallbacks=res.numpy_fallbacks,
-        launches=dict(_build.launches), kernel_device_ms=kernel_ms,
-        kernel_device_share=sum(kernel_ms.values()) / 1e3 / wall,
+        launches=dict(_build.launches), kernel_device_ms=device_ms_by_kernel,
+        kernel_device_share=sum(device_ms_by_kernel.values()) / 1e3 / wall,
         **meter.summary(wall))
 
 

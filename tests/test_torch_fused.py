@@ -28,6 +28,7 @@ from tsalign_tpu.geometry import AlignmentRange
 from tsalign_tpu.jax_engine import JaxAligner
 from tsalign_tpu.parallel.batch_ts import BatchedTSAligner as JaxBatch
 from tsalign_tpu_torch import engine as port_engine
+from tsalign_tpu_torch import tracing
 from tsalign_tpu_torch.aligner import Aligner as PortFacade
 from tsalign_tpu_torch.convert import config_from_reference, range_from_reference
 from tsalign_tpu_torch.engine import TorchAligner
@@ -65,10 +66,16 @@ def _port_batch(fused, keep):
 def test_fused_loop_matches_jax_fused_and_port_host(monkeypatch):
     _jax_loop(monkeypatch, True)
     want = JaxBatch(_cfg(), test_fused_rounds._pairs(), chunk=16, keep_fields=True).align()
-    fused_rounds.control_reads.clear()
-    bt = _port_batch(True, True)
-    got = bt.align()
-    reads = list(fused_rounds.control_reads)
+    tracing.enable()
+    try:
+        bt = _port_batch(True, True)
+        got = bt.align()
+        spans, _ = tracing.take()
+    finally:
+        tracing.disable()
+    # (call, round, elements) of each control read: a device.read span with its round
+    reads = [(call, attrs["round"], attrs["numel"]) for name, _, _, _, call, attrs in spans
+             if name == "device.read" and "round" in attrs]
     host = _port_batch(False, True).align()
     views = _port_batch(True, "device").align()
     assert [r.rounds for r in got][1] == 1

@@ -143,13 +143,16 @@ def test_fused_rounds_loop_runs_with_both_packages_blocked():
         "from tsalign_tpu_torch.alphabet import get_alphabet\n"
         "from tsalign_tpu_torch.config import TemplateSwitchConfig\n"
         "from tsalign_tpu_torch.engine import TorchAligner\n"
-        "from tsalign_tpu_torch.parallel import fused_rounds\n"
+        "from tsalign_tpu_torch import tracing\n"
         "al = get_alphabet('dna-n')\n"
         "cfg = TemplateSwitchConfig.default(al)\n"
         "eng = TorchAligner(cfg, al.encode('ACGTTGCAAGCTTGACCATGGCA'), "
         "al.encode('ACGTTGCATTGCAAGTTGACCATGGCA'), device='cpu', fused=True)\n"
+        "tracing.enable()\n"
         "cost, aln = eng.align_with_traceback()\n"
-        "assert eng.loop == 'fused' and fused_rounds.control_reads\n"
+        "spans, _ = tracing.take()\n"
+        "assert eng.loop == 'fused' and any(s[0] == 'device.read' and 'round' in s[5] "
+        "for s in spans)\n"
         "assert not any(m.split('.')[0] in ('jax', 'tsalign_tpu') for m, v in "
         "sys.modules.items() if v is not None)\n"
         "print(cost)\n"

@@ -37,10 +37,6 @@ NVCC_FLAGS = [
 # Kernel launches per wrapper name: each wrapper adds one where it launches
 # its CUDA kernel, and nowhere else (the plain CPU path does not count).
 launches: collections.Counter = collections.Counter()
-# Device time of the launches: None (off), or a list that each wrapper
-# extends with (name, start event, end event) around its launch, for a
-# caller that wants the kernels' share of a run (chip_smoke.py phase 7).
-kernel_events = None
 
 _lib = None
 # Seconds from the start of the build to each source's nvcc exit, by stem
@@ -148,32 +144,6 @@ def resources(stem: str) -> list:
     return [dict(name=m["name"], registers=int(m["regs"]), stack=int(m["stack"]),
                  spill_stores=int(m["st"]), spill_loads=int(m["ld"]))
             for m in _PTXAS.finditer(log)]
-
-
-def timed(name: str, launch):
-    """Run `launch()` (a C entry point's call; returns its code), between
-    two CUDA events when `kernel_events` is a list."""
-    if kernel_events is None:
-        return launch()
-    import torch
-
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    code = launch()
-    end.record()
-    kernel_events.append((name, start, end))
-    return code
-
-
-def kernel_ms() -> dict:
-    """Device milliseconds of the launches in `kernel_events`, per name."""
-    import torch
-
-    torch.cuda.synchronize()
-    out = collections.Counter()
-    for name, start, end in kernel_events or ():
-        out[name] += start.elapsed_time(end)
-    return dict(out)
 
 
 def check(code: int, what: str) -> None:

@@ -43,6 +43,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from . import tracing
 from .alignment import Alignment
 from .alphabet import Alphabet, get_alphabet
 from .config import TemplateSwitchConfig
@@ -172,6 +173,7 @@ class Aligner:
         )
         return comp, alignment
 
+    @tracing.spanned("facade.engine_pass")
     def _run_engine_raw(
         self,
         cfg,
@@ -210,6 +212,7 @@ class Aligner:
         self._last_rounds = getattr(eng, "last_rounds", 1)
         return out
 
+    @tracing.spanned("facade.align")
     def align(
         self,
         reference: str,
@@ -386,7 +389,9 @@ def align(
     setting_names = {f.name for f in dataclasses.fields(Aligner)}
     settings = {k: v for k, v in kwargs.items() if k in setting_names}
     call_kwargs = {k: v for k, v in kwargs.items() if k not in setting_names}
-    a = Aligner(alphabet=alphabet, device=device, **settings)
-    if costs is not None:
-        a.set_costs_parse(costs)
-    return a.align(reference, query, **call_kwargs)
+    with tracing.span("facade.call"):
+        with tracing.span("facade.settings"):
+            a = Aligner(alphabet=alphabet, device=device, **settings)
+            if costs is not None:
+                a.set_costs_parse(costs)
+        return a.align(reference, query, **call_kwargs)

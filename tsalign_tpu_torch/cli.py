@@ -25,7 +25,8 @@ points only:
     (`chain_align(engine="numpy")` in chained mode); no value picks the
     engine by sequence length;
   * `align --profile DIR` records a `torch.profiler` trace (CPU, and CUDA on
-    a CUDA device) and writes it into DIR as a Chrome trace;
+    a CUDA device) and writes it into DIR as a Chrome trace, with the
+    program's spans (``tracing.py``) as ranges over the kernels;
   * the matrix method's prefix scan is the port's `ops/primary_sweep`, and
     `preprocess` runs on the port's `chain/plan.py` and `chain/anchors.py`;
   * the program is named `tsalign-tpu-torch`.
@@ -37,6 +38,7 @@ import argparse
 import re
 import sys
 
+from . import tracing
 from .alphabet import get_alphabet
 from .config import TemplateSwitchConfig
 from .fasta import load_pair
@@ -304,21 +306,27 @@ def cmd_align(args) -> int:
         prof = profile(
             activities=activities, on_trace_ready=tensorboard_trace_handler(args.profile)
         )
-    with prof:
-        result = aligner.align(
-            ref_rec.sequence,
-            qry_rec.sequence,
-            reference_name=ref_rec.display_name,
-            query_name=qry_rec.display_name,
-            range_=rng,
-            cost_limit=args.cost_limit,
-            memory_limit=args.memory_limit,
-            max_template_switches=args.max_template_switches,
-            prune_range=args.prune_range,
-            # The reference passes !cli.dont_extend_beyond_range into the
-            # aligner (template_switch_distance_type_selectors.rs:437).
-            extend_beyond_range=not args.dont_extend_beyond_range,
-        )
+        tracing.enable(profiler_ranges=True)
+    try:
+        with prof:
+            result = aligner.align(
+                ref_rec.sequence,
+                qry_rec.sequence,
+                reference_name=ref_rec.display_name,
+                query_name=qry_rec.display_name,
+                range_=rng,
+                cost_limit=args.cost_limit,
+                memory_limit=args.memory_limit,
+                max_template_switches=args.max_template_switches,
+                prune_range=args.prune_range,
+                # The reference passes !cli.dont_extend_beyond_range into the
+                # aligner (template_switch_distance_type_selectors.rs:437).
+                extend_beyond_range=not args.dont_extend_beyond_range,
+            )
+    finally:
+        if args.profile:
+            tracing.disable()
+            tracing.take()
     toml = result.to_toml()
     if args.output:
         with open(args.output, "w") as f:

@@ -15,7 +15,8 @@ the port identical tables.
 from __future__ import annotations
 
 import numpy as np
-import torch
+
+from .ops.common import to_device
 
 
 def tables_from_numpy(d: dict, device) -> dict:
@@ -27,7 +28,7 @@ def tables_from_numpy(d: dict, device) -> dict:
             if a.size and (a.min() < np.iinfo(np.int32).min or a.max() > np.iinfo(np.int32).max):
                 raise ValueError(f"table {name!r} does not fit int32")
             a = a.astype(np.int32)
-        out[name] = torch.from_numpy(a).to(device)
+        out[name] = to_device(a, device)
     return out
 
 

@@ -32,6 +32,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from . import tracing
 from .alignment import Alignment
 from .config import TemplateSwitchConfig
 from .costs import INF
@@ -43,6 +44,8 @@ from .ops.common import (
     DEV_INF,
     from_device_costs,
     full_inf,
+    to_device,
+    to_host,
     validate_magnitudes,
 )
 from .ops.modules import KindModule, fold_kind_cells, kind_all_chunks, kind_sel_chunks
@@ -77,7 +80,7 @@ def accumulate(R_acc, R_new):
     """Fold a round's reentry field into the accumulator; also whether
     nothing improved (``_acc_jit``)."""
     R2 = torch.minimum(R_acc, R_new)
-    return R2, bool(torch.equal(R2, R_acc))
+    return R2, bool(to_host((R2 == R_acc).all()))
 
 
 def next_seeds(root, R):
@@ -99,6 +102,7 @@ class EngineResult:
 class TorchAligner:
     """The cost engine of the port (JaxAligner's host rounds loop)."""
 
+    @tracing.spanned("engine.init")
     def __init__(
         self,
         config: TemplateSwitchConfig,
@@ -201,6 +205,7 @@ class TorchAligner:
         mx = max(mx, max(finite_base) if finite_base else 0)
         validate_magnitudes(mx, 2 * (self.n_r + self.n_q + 2))
 
+    @tracing.spanned("engine.seeds")
     def _root_seeds(self) -> torch.Tensor:
         cfg = self.config
         F = cfg.left_flank_length + cfg.right_flank_length + 1
@@ -211,7 +216,7 @@ class TorchAligner:
             self.range.reference_offset,
             self.range.query_offset,
         ] = 0
-        return torch.from_numpy(seeds).to(self.device)
+        return to_device(seeds, self.device)
 
     def _remaining_bound(self):
         """Admissible remaining-cost field (host numpy), memoized by content;
@@ -399,26 +404,27 @@ class TorchAligner:
             route = self._route(km, A_mod, AS, best)
             if route is None:
                 continue
-            if spec.pk not in A_dev:
-                A_dev[spec.pk] = torch.from_numpy(np.ascontiguousarray(A_mod)).to(self.device)
-            PAD = max(0, -km.s_lo)
-            log = {"round": self._reentries, "kind": (spec.pk, spec.sk, spec.dk),
-                   "route": route[0]}
-            if route[0] == "compact":
-                _, e_live, Kb = route
-                Rk_pad = self._launch_compact(km, A_dev[spec.pk], e_live, Kb)
-                log.update(Kb=Kb, e_live=tuple(int(e) for e in e_live))
-            else:
-                bases = route[1]
-                width = PAD + spec.n_anti + 1 + max(0, km.chunk - 1 + km.s_hi)
-                (Rk_pad,) = kind_all_chunks([km], A_dev[spec.pk][None], np.asarray([bases]),
-                                            PAD, width)
-                log.update(chunks=sum(1 for b in bases if b >= 0))
-            self.route_log.append(log)
-            R = fold_kind_cells(
-                R, Rk_pad, spec.n_anti_real, PAD=PAD, n_anti=spec.n_anti,
-                transpose=spec.pk == 1,
-            )
+            with tracing.span("rounds.reentry"):
+                if spec.pk not in A_dev:
+                    A_dev[spec.pk] = to_device(A_mod, self.device)
+                PAD = max(0, -km.s_lo)
+                log = {"round": self._reentries, "kind": (spec.pk, spec.sk, spec.dk),
+                       "route": route[0]}
+                if route[0] == "compact":
+                    _, e_live, Kb = route
+                    Rk_pad = self._launch_compact(km, A_dev[spec.pk], e_live, Kb)
+                    log.update(Kb=Kb, e_live=tuple(int(e) for e in e_live))
+                else:
+                    bases = route[1]
+                    width = PAD + spec.n_anti + 1 + max(0, km.chunk - 1 + km.s_hi)
+                    (Rk_pad,) = kind_all_chunks([km], A_dev[spec.pk][None],
+                                                np.asarray([bases]), PAD, width)
+                    log.update(chunks=sum(1 for b in bases if b >= 0))
+                self.route_log.append(log)
+                R = fold_kind_cells(
+                    R, Rk_pad, spec.n_anti_real, PAD=PAD, n_anti=spec.n_anti,
+                    transpose=spec.pk == 1,
+                )
         return R
 
     def _launch_compact(self, km: KindModule, A_dev, e_live, Kb: int):
@@ -437,10 +443,11 @@ class TorchAligner:
         """Sweep from device seeds, left-flank climbs allowed when `climb`;
         returns (entry cells int32 host, target cost, M on the device)."""
         M = self._get_sweep(climb).sweep(seeds)
-        self.cells_swept += M.shape[0] * 3 * (self.n_r + 1) * (self.n_q + 1)
-        E, tv = sweep_summary(M, self.range.reference_limit, self.range.query_limit)
-        t = int(tv.min())
-        return E.cpu().numpy(), (INF if t >= DEV_INF // 2 else t), M
+        with tracing.span("engine.summary"):
+            self.cells_swept += M.shape[0] * 3 * (self.n_r + 1) * (self.n_q + 1)
+            E, tv = sweep_summary(M, self.range.reference_limit, self.range.query_limit)
+            t = int(to_host(tv.min()))
+            return to_host(E), (INF if t >= DEV_INF // 2 else t), M
 
     def _fused_delegate(self) -> Optional[EngineResult]:
         """The plain single pair through the fused rounds loop of a one-pair
@@ -484,6 +491,7 @@ class TorchAligner:
         self.cells_swept += res.rounds * (F * 3 * area) + max(0, res.rounds - 1) * n_kinds * area
         return res
 
+    @tracing.spanned("rounds.align")
     def align(self) -> EngineResult:
         fused = self._fused_delegate()
         if fused is not None:
@@ -494,13 +502,13 @@ class TorchAligner:
 
         def keep(M, E):
             if self.keep_fields is True:
-                res.primary_fields.append(from_device_costs(M.cpu().numpy()))
+                res.primary_fields.append(from_device_costs(to_host(M)))
             elif self.keep_fields == "device":
                 res.primary_fields.append(FieldView4(M, entry_cells=from_device_costs(E)))
 
         def keepR(R):
             if self.keep_fields is True:
-                res.reentry_fields.append(from_device_costs(R.cpu().numpy()))
+                res.reentry_fields.append(from_device_costs(to_host(R)))
             elif self.keep_fields == "device":
                 res.reentry_fields.append(FieldView2(R))
 

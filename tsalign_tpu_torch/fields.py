@@ -4,7 +4,8 @@ Counterpart of ``tsalign_tpu/device_fields.py``.  The traceback reads
 O(path length) scattered cells of the primary fields M_k (F, 3, n_r+1, n_q+1),
 single cells of the reentry fields R_k, and the per-round entry layers.  The
 fields stay on the device as torch tensors; a view copies a block of rows to
-the host with a plain slice and ``.cpu()`` on first touch and answers from it:
+the host with a plain slice and ``ops.common.to_host`` on first touch and
+answers from it:
 
   * ``view[:, :, i, j]``  -> (F, 3) int64 host array
   * ``view[fi, g, i, j]`` -> int64 host scalar
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .ops.common import from_device_costs
+from .ops.common import from_device_costs, to_host
 
 ROWS_PER_FETCH = 64
 
@@ -37,7 +38,7 @@ class _RowBlocks:
         blk = self._blocks.get(i0)
         if blk is None:
             rows = self._dev[..., i0 : i0 + ROWS_PER_FETCH, :]
-            blk = from_device_costs(rows.cpu().numpy())
+            blk = from_device_costs(to_host(rows))
             self._blocks[i0] = blk
         return blk, i0
 

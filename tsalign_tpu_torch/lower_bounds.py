@@ -57,6 +57,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from . import tracing
 from .config import TemplateSwitchConfig
 from .costs import INF, CostFunction
 from .ops.primary_sweep import CLAMP
@@ -316,6 +317,7 @@ class RemainingBound:
     S: np.ndarray
 
 
+@tracing.spanned("bounds.remaining_bound")
 def compute_remaining_bound(
     config: TemplateSwitchConfig,
     reference: np.ndarray,

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from .common import DEV_INF, I32
+from .common import DEV_INF, I32, to_device
 from .modules import assembly_torch
 
 
@@ -98,7 +98,7 @@ def assembly_fold_torch(Bs, A_chunks, kms, ts, slabs, dest_base: int, dest=None)
             U = assembly_torch(Bs[z], A_chunks[z], km, ts[z], separate_cols=True)
             n_rows = U.shape[0]
             dev = slabs[z].device
-            pos = (torch.as_tensor(np.asarray(dest[z]), device=dev)[:, None]
+            pos = (to_device(np.asarray(dest[z]), dev)[:, None]
                    + torch.arange(km.S, device=dev)[None, :] + dest_base)
             slabs[z].scatter_reduce_(1, pos.reshape(1, -1).expand(n_rows, -1),
                                      U.reshape(n_rows, -1), reduce="amin", include_self=True)
@@ -116,7 +116,7 @@ def _launch(Bs, A_chunks, kms, ts, slabs, dest_base, dest, lo, span):
     A_chunks = [a if a.stride(1) == 1 else a.contiguous() for a in A_chunks]
     if any(s.stride(1) != 1 for s in slabs):
         raise ValueError("assembly_fold: a slab's columns must be contiguous")
-    d = None if dest is None else torch.from_numpy(dest.astype(np.int32)).to(dev)
+    d = None if dest is None else to_device(dest.astype(np.int32), dev)
     ptrs = np.zeros((P, 6), dtype=np.uint64)
     strides = np.zeros((P, 5), dtype=np.int64)
     ints = np.zeros((P, 4), dtype=np.int32)
@@ -132,11 +132,11 @@ def _launch(Bs, A_chunks, kms, ts, slabs, dest_base, dest, lo, span):
                        for p in km0.plans], dtype=np.int32).reshape(-1, 4)
     lib = _build.library()
     name = "assembly_pairs" if P > 1 else "assembly"
-    code = _build.timed(name, lambda: lib.tsa_assembly(
+    code = lib.tsa_assembly(
         ctypes.c_void_p(ptrs.ctypes.data), ctypes.c_void_p(strides.ctypes.data),
         ctypes.c_void_p(ints.ctypes.data),
         ctypes.c_void_p(segs.ctypes.data) if segs.size else None, len(km0.plans), P,
         n_rows, C, km0.L_read, km0.S, km0.s_lo, km0.anti_lo, int(km0.ldiff0),
-        int(km0.same_seq), _build.stream_ptr(dev)))
+        int(km0.same_seq), _build.stream_ptr(dev))
     _build.check(code, name)
     _build.launches[name] += 1

@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..costs import INF
 
 DEV_INF = 2**30 - 1
@@ -41,6 +42,32 @@ def from_device_costs(x) -> np.ndarray:
     """Map device int32 costs back to host int64 with INF restored."""
     x = np.asarray(x, dtype=np.int64)
     return np.where(x >= DEV_INF_THRESH, INF, x)
+
+
+def to_host(t: torch.Tensor, **attrs) -> np.ndarray:
+    """The one way a tensor reaches the host: `t` as a numpy array (a host
+    wait on a device tensor).  While tracing is on, the span `device.read`
+    (`attrs`, and the elements read as `numel`), and for a tensor off the
+    CPU the counts `device.reads` and `copy.d2h_bytes`."""
+    if not tracing.enabled:
+        return t.cpu().numpy()
+    with tracing.span("device.read", numel=t.numel(), **attrs):
+        out = t.cpu().numpy()
+    if t.device.type != "cpu":
+        tracing.count("device.reads")
+        tracing.count("copy.d2h_bytes", t.nbytes)
+    return out
+
+
+def to_device(a, device) -> torch.Tensor:
+    """The one way host data reaches a device: a numpy array (or anything
+    ``np.ascontiguousarray`` takes, or a CPU tensor) copied to `device`, counted as
+    `copy.h2d_bytes` while tracing is on and `device` is not the CPU."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+    out = t.to(device)
+    if tracing.enabled and out.device.type != "cpu":
+        tracing.count("copy.h2d_bytes", out.nbytes)
+    return out
 
 
 def validate_magnitudes(max_finite_cost: int, path_length: int) -> None:
@@ -68,7 +95,7 @@ def dead_state_threshold(lut, sdo, pmask, io, ie, L: int, *, allow_sdel: bool) -
     (numpy arrays or tensors of any shape; io and ie per level or per
     primary char): the bound holds for every chunk."""
     def lo(x):
-        x = np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+        x = to_host(x) if isinstance(x, torch.Tensor) else np.asarray(x)
         return int(x.min()) if x.size else 0
 
     step = min(lo(lut), lo(io), lo(ie)) + min(lo(pmask), 0)
@@ -129,7 +156,7 @@ def device_key(device) -> str:
 def check_extension(name: str, ext: torch.Tensor) -> None:
     """Raise unless every chain extension cost in `ext` is >= 0 (one host
     wait on a device tensor)."""
-    if ext.numel() and int(ext.min()) < 0:
+    if ext.numel() and int(to_host(ext.min())) < 0:
         raise ValueError(f"{name}: chain extension costs must be >= 0")
 
 

@@ -107,11 +107,11 @@ def module_scan(seedT, lut, sdo, sde, pchar, pmask, io, ie, *, fwd: bool,
         name = ("module_scan_gmem" if gmem else "module_scan_pairs" if P > 1
                 else "module_scan_wide" if T > 1 else "module_scan")
         entry = lib.tsa_module_scan_gmem if gmem else lib.tsa_module_scan
-        code = _build.timed(name, lambda: entry(
+        code = entry(
             seedT.data_ptr(), lut.data_ptr(), sdo.data_ptr(), sde.data_ptr(),
             *(t.data_ptr() for t in levels), out.data_ptr(), P, NB, C, W, L, A,
             int(fwd), int(allow_sdel), int(skip_from), 0, _build.stream_ptr(dev),
-        ))
+        )
         _build.check(code, name)
         _build.launches[name] += 1
     return out.view(L + 1, P, NBs, C)[:, :, :NB].transpose(0, 1) if pairs else out
@@ -173,11 +173,11 @@ def module_scan_diag(seed, lut, sdo, sde, pchar, pmask, io, ie, *, fwd: bool,
         lib = _build.library()
         name = "module_scan_gmem" if gmem else "module_scan_diag"
         entry = lib.tsa_module_scan_gmem if gmem else lib.tsa_module_scan
-        code = _build.timed(name, lambda: entry(
+        code = entry(
             seed.data_ptr(), lut.data_ptr(), sdo.data_ptr(), sde.data_ptr(),
             *(t.data_ptr() for t in levels), out.data_ptr(), P, NB, 1, W, L, A,
             int(fwd), int(allow_sdel), 0, 1, _build.stream_ptr(dev),
-        ))
+        )
         _build.check(code, name)
         _build.launches[name] += 1
     return out.view(L + 1, P, NBs)[:, :, :NB].transpose(0, 1) if pairs else out

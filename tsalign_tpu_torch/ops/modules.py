@@ -54,6 +54,7 @@ from .common import (
     sat_add,
     shift_last,
     sliding_min_start,
+    to_device,
     to_device_costs,
 )
 from .primary import pad_table_for_poison
@@ -495,7 +496,7 @@ def _chunk_modules(kms, tabs, live, A_chunks, sl: slice, levels, skip_from):
     dev = A_chunks[0].device
     if km0.same_seq:
         return [kms[i].same_module(dev) for i in live]
-    idx = torch.tensor(live, device=dev)
+    idx = to_device(live, dev)
     seedT = torch.stack([sat_add(A_chunks[z][:, :, None], tabs[i]["seed"][sl][None])
                          for z, i in enumerate(live)])
     return module_scan(
@@ -568,7 +569,7 @@ def kind_sel_chunks(kms, A_b, e_sel_b, PAD: int, OUTW: int, n_live=None):
     C = km0.chunk
     n_rows = km0.spec.n_p + 1
     e_sel_host = np.asarray(e_sel_b, dtype=np.int64)
-    e_sel = torch.from_numpy(e_sel_host).to(dev)
+    e_sel = to_device(e_sel_host, dev)
     Kb = e_sel.shape[1]
     ts = [km.tables(dev) for km in kms]
     levels, skip_from = _kind_levels(kms, dev)

@@ -18,10 +18,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import TemplateSwitchConfig
 from ..costs import INF
 from ..geometry import AlignmentRange
-from .common import DEV_INF, device_key, to_device_costs
+from .common import DEV_INF, device_key, to_device, to_device_costs
 from .sweep import sweep_flanked, sweep_flankless
 
 
@@ -39,6 +40,7 @@ def pad_table_for_poison(table):
 class PrimarySweep:
     """Primary sweep for one (config, pair, range, climb)."""
 
+    @tracing.spanned("engine.tables")
     def __init__(
         self,
         config: TemplateSwitchConfig,
@@ -126,12 +128,12 @@ class PrimarySweep:
     def _inputs_on(self, device):
         key = device_key(device)
         if key not in self._dev_inputs:
-            arrays = self.flankless_inputs() if self.F == 1 else self.flanked_inputs()
-            self._dev_inputs[key] = tuple(
-                torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays
-            )
+            with tracing.span("engine.tables"):
+                arrays = self.flankless_inputs() if self.F == 1 else self.flanked_inputs()
+                self._dev_inputs[key] = tuple(to_device(a, device) for a in arrays)
         return self._dev_inputs[key]
 
+    @tracing.spanned("engine.sweep")
     def sweep(self, seeds: torch.Tensor) -> torch.Tensor:
         """seeds (F, 3, n_r+1, n_q+1) int32 -> M (F, 3, n_r+1, n_q+1) int32,
         on the seeds' device."""

@@ -108,12 +108,12 @@ def _launch(name, subs, ddrows, seeds, io, ie, L, R, climb, warps: int = 0):
         pair_strides = ((subs.stride(0), ddrows.stride(0), seeds.stride(0), io.stride(0))
                         if pairs else (0, 0, 0, 0))
         count = name + ("_pairs" if P > 1 else "")
-        code = _build.timed(count, lambda: lib.tsa_sweep(
+        code = lib.tsa_sweep(
             subs.data_ptr(), ddrows.data_ptr(), seeds.data_ptr(), io.data_ptr(),
             ie.data_ptr(), out.data_ptr(), skewed_in.data_ptr(), skewed_out.data_ptr(),
             n_rows, Wq, L, R, int(bool(climb)), ddrows.shape[-1], seeds.stride(-3),
             seeds.stride(-2), warps, P, *pair_strides, _build.stream_ptr(dev),
-        ))
+        )
         _build.check(code, count)
         _build.launches[count] += 1
     return out

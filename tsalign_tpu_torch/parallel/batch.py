@@ -30,7 +30,7 @@ import torch
 
 from ..config import TemplateSwitchConfig
 from ..ops.common import (DEV_INF, check_extension, device_key, full_inf, minplus_scan,
-                          sat_add, to_device_costs)
+                          sat_add, to_device, to_device_costs, to_host)
 from ..ops.primary_sweep import GAP_NONE
 from ..ops.sweep import sweep_flankless
 from .mesh import Mesh, all_gather, pmean, shard_blocks
@@ -150,18 +150,18 @@ class BatchedGapAffine:
         """(sub, go, ge) int32 tensors on `device`."""
         key = device_key(device)
         if key not in self._tables:
-            self._tables[key] = tuple(torch.from_numpy(x).to(device) for x in self._host)
+            self._tables[key] = tuple(to_device(x, device) for x in self._host)
         return self._tables[key]
 
     def _costs_on(self, device, refs, qrys) -> torch.Tensor:
         device = torch.device(device)
-        r = torch.as_tensor(np.asarray(refs, dtype=np.int32)).to(device)
-        q = torch.as_tensor(np.asarray(qrys, dtype=np.int32)).to(device)
+        r = to_device(np.asarray(refs, dtype=np.int32), device)
+        q = to_device(np.asarray(qrys, dtype=np.int32), device)
         route = batched_gap_affine if device.type == "cpu" else sweep_gap_affine
         return route(self.A, *self.tables(device), r, q)
 
     def costs(self, refs: np.ndarray, qrys: np.ndarray) -> np.ndarray:
-        return self._costs_on(self.device, refs, qrys).cpu().numpy()
+        return to_host(self._costs_on(self.device, refs, qrys))
 
     def sharded_step(self, mesh: Mesh, refs, qrys):
         """One data-parallel step over `mesh` (axis "data"): per-pair costs

@@ -69,6 +69,7 @@ logger = logging.getLogger(__name__)
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import TemplateSwitchConfig
 from ..costs import INF
 from ..engine import EngineResult
@@ -80,7 +81,9 @@ from ..ops.common import (
     device_key,
     from_device_costs,
     full_inf,
+    to_device,
     to_device_costs,
+    to_host,
     validate_magnitudes,
 )
 from ..ops.module_scan import module_scan_diag
@@ -111,6 +114,7 @@ def _seeds_batch(root, R):
     return seeds
 
 
+@tracing.spanned("engine.sweep")
 def _sweep_batch(arrays, seeds, *, L, R):
     """The primary sweep of every pair in one launch of the sweep kernel's
     pair axis: seeds (B, F, 3, nr+1, nq+1) -> M of the same shape.  `arrays`
@@ -145,7 +149,7 @@ def _acc_batch(R_acc, R_new):
     """Fold a round's reentry contributions into the accumulator and report
     whether anything improved (see engine.accumulate)."""
     R2 = torch.minimum(R_acc, R_new)
-    return R2, bool(torch.equal(R2, R_acc))
+    return R2, bool(to_host((R2 == R_acc).all()))
 
 
 class NotConvergedError(RuntimeError):
@@ -374,8 +378,8 @@ class BatchedTSAligner:
                 has_lb[i] = True
                 S = np.minimum(lb.S, BIG - 1).astype(np.int32)
                 S32[i] = np.where(lb.S >= INF, np.int32(DEV_INF), S)
-            _memo_put(_BATCH_S32_MEMO, key, (torch.from_numpy(S32).to(self.device),
-                                             torch.from_numpy(has_lb).to(self.device)))
+            _memo_put(_BATCH_S32_MEMO, key, (to_device(S32, self.device),
+                                             to_device(has_lb, self.device)))
         return _BATCH_S32_MEMO[key]
 
     def _can_improve_pair(self, i: int, E_i: np.ndarray, best: int) -> bool:
@@ -530,10 +534,6 @@ class BatchedTSAligner:
                 eb_b[live, ci] = eb
             if (eb_b < 0).all():
                 continue  # no pair has a live entry for this kind
-            if spec.pk not in a_dev:
-                a_dev[spec.pk] = torch.from_numpy(
-                    np.ascontiguousarray(A_mod)).to(self.device)
-            log = {"round": self._reentries, "kind": (spec.pk, spec.sk, spec.dk)}
             # Compact-column route (the single-pair engine's post-round-1
             # fast path): once the pruned entry fields are sparse but
             # scattered, whole chunks stay live while only a handful of
@@ -548,31 +548,36 @@ class BatchedTSAligner:
             while Kb < max(int(n_live.max()), 1):
                 Kb *= 2
             live_chunks_max = int((eb_b >= 0).sum(axis=1).max())
-            if mesh is None and _engine._COMPACT_ROUTE and 2 * Kb <= live_chunks_max * C:
-                e_sel_b = np.zeros((B, Kb), np.int64)
-                for i in range(B):
-                    idx = np.nonzero(col_live[i])[0]
-                    e_sel_b[i, : idx.size] = idx
-                OUTW = PAD + n_anti + 1 + max(0, km0.s_hi)
-                slabs = kind_sel_chunks(kms, a_dev[spec.pk], e_sel_b, PAD, OUTW,
-                                        n_live=n_live)
-                log.update(route="compact", Kb=Kb,
-                           e_sel=tuple(tuple(int(e) for e in row) for row in e_sel_b))
-            else:
-                slabs = []
-                for sl, dev in self._blocks(mesh):
-                    slabs += [None if x is None else x.to(self.device) for x in kind_all_chunks(
-                        kms[sl], a_dev[spec.pk][sl].to(dev), eb_b[sl], PAD, width)]
-                log.update(route="chunked", chunks=int((eb_b >= 0).sum()))
-            self.route_log.append(log)
-            for i, Rk_pad in enumerate(slabs):
-                if Rk_pad is None:
-                    continue
-                lr, lq = self.real[i]
-                R_dev[i] = fold_kind_cells(
-                    R_dev[i], Rk_pad, lq if spec.pk == 0 else lr,
-                    PAD=PAD, n_anti=n_anti, transpose=spec.pk == 1,
-                )
+            with tracing.span("rounds.reentry"):
+                if spec.pk not in a_dev:
+                    a_dev[spec.pk] = to_device(A_mod, self.device)
+                log = {"round": self._reentries, "kind": (spec.pk, spec.sk, spec.dk)}
+                if mesh is None and _engine._COMPACT_ROUTE and 2 * Kb <= live_chunks_max * C:
+                    e_sel_b = np.zeros((B, Kb), np.int64)
+                    for i in range(B):
+                        idx = np.nonzero(col_live[i])[0]
+                        e_sel_b[i, : idx.size] = idx
+                    OUTW = PAD + n_anti + 1 + max(0, km0.s_hi)
+                    slabs = kind_sel_chunks(kms, a_dev[spec.pk], e_sel_b, PAD, OUTW,
+                                            n_live=n_live)
+                    log.update(route="compact", Kb=Kb,
+                               e_sel=tuple(tuple(int(e) for e in row) for row in e_sel_b))
+                else:
+                    slabs = []
+                    for sl, dev in self._blocks(mesh):
+                        slabs += [None if x is None else x.to(self.device)
+                                  for x in kind_all_chunks(kms[sl], a_dev[spec.pk][sl].to(dev),
+                                                           eb_b[sl], PAD, width)]
+                    log.update(route="chunked", chunks=int((eb_b >= 0).sum()))
+                self.route_log.append(log)
+                for i, Rk_pad in enumerate(slabs):
+                    if Rk_pad is None:
+                        continue
+                    lr, lq = self.real[i]
+                    R_dev[i] = fold_kind_cells(
+                        R_dev[i], Rk_pad, lq if spec.pk == 0 else lr,
+                        PAD=PAD, n_anti=n_anti, transpose=spec.pk == 1,
+                    )
         return R_dev
 
     def _stack_sweep_arrays(self):
@@ -593,6 +598,7 @@ class BatchedTSAligner:
         _memo_put(_BATCH_ARRAYS_MEMO, memo_key, out)
         return out
 
+    @tracing.spanned("engine.seeds")
     def _root_seeds(self) -> torch.Tensor:
         """(B, F, 3, nr+1, nq+1) root seeds: 0 at each pair's origin in flank
         layer R's GAP_NONE plane (R the right flank's length), DEV_INF
@@ -604,7 +610,7 @@ class BatchedTSAligner:
                 i, self.config.right_flank_length, GAP_NONE,
                 rg.reference_offset, rg.query_offset,
             ] = 0
-        return torch.from_numpy(to_device_costs(seeds0)).to(self.device)
+        return to_device(to_device_costs(seeds0), self.device)
 
     def align(self, mesh=None) -> List[EngineResult]:
         """Per-pair engine results (exact optimum each), batch-lockstep: the
@@ -627,19 +633,20 @@ class BatchedTSAligner:
         arrays_b = self._stack_sweep_arrays()
         root = self._root_seeds()
         L, R = self.config.left_flank_length, self.config.right_flank_length
-        lr = torch.tensor([r for r, _ in self.limits], device=self.device)
-        lq = torch.tensor([q for _, q in self.limits], device=self.device)
+        lr = to_device([r for r, _ in self.limits], self.device)
+        lq = to_device([q for _, q in self.limits], self.device)
         M0 = _sweep_batch(arrays_b, root, L=L, R=R)
-        E0, t0 = fused_rounds._summ(M0, lr, lq)
-        t0_host = t0.cpu().numpy()
-        best0 = [INF if int(t) >= int(DEV_INF) // 2 else int(t) for t in t0_host]
+        with tracing.span("engine.summary"):
+            E0, t0 = fused_rounds._summ(M0, lr, lq)
+            t0_host = to_host(t0)
+            best0 = [INF if int(t) >= int(DEV_INF) // 2 else int(t) for t in t0_host]
         results = [EngineResult(cost=INF, rounds=1) for _ in range(B)]
 
         # Every pair already provably done at round 1 (the k * delta bound
         # or the TSLB improvement stop): no kinds, no bounds on the device.
         delta = min_tsm_cost_bound(self.config)
         if all(b < INF for b in best0):
-            E0_host = E0.cpu().numpy()
+            E0_host = to_host(E0)
             if all((delta > 0 and delta > best0[i])
                    or not self._can_improve_pair(i, E0_host[i], best0[i])
                    for i in range(B)):
@@ -657,18 +664,18 @@ class BatchedTSAligner:
         meta = dict(delta=delta, slack=self.config.secondary_length_bonus * (self.nr + self.nq),
                     max_rounds=self.max_rounds, keep=keep, L=L, R=R)
         out = fused_rounds.fused_loop(self, data, meta)
-        if not bool(out["done"].all()):
+        if not bool(to_host(out["done"].all())):
             raise NotConvergedError(
                 f"BatchedTSAligner: not all pairs converged within "
                 f"max_rounds={self.max_rounds}"
             )
-        best = out["best"].cpu().numpy()
-        rounds = out["rounds"].cpu().numpy()
+        best = to_host(out["best"])
+        rounds = to_host(out["rounds"])
         for i in range(B):
             results[i].cost = INF if int(best[i]) >= int(DEV_INF) // 2 else int(best[i])
             results[i].rounds = int(rounds[i])
         self._keep_fused_fields(results, out["M_all"], out["R_all"], out["E_all"],
-                                out["np_cnt"].cpu().numpy(), out["nr_cnt"].cpu().numpy())
+                                to_host(out["np_cnt"]), to_host(out["nr_cnt"]))
         return results
 
     def _keep_fused_fields(self, results, M_all, R_all, E_all, np_cnt, nr_cnt):
@@ -681,13 +688,13 @@ class BatchedTSAligner:
         for i, res in enumerate(results):
             for r in range(int(np_cnt[i])):
                 if self.keep_fields is True:
-                    res.primary_fields.append(from_device_costs(M_all[r][i].cpu().numpy()))
+                    res.primary_fields.append(from_device_costs(to_host(M_all[r][i])))
                 else:
-                    entry = from_device_costs(E_all[r][i].cpu().numpy())
+                    entry = from_device_costs(to_host(E_all[r][i]))
                     res.primary_fields.append(FieldView4(M_all[r][i], entry_cells=entry))
             for r in range(int(nr_cnt[i])):
                 res.reentry_fields.append(
-                    from_device_costs(R_all[r][i].cpu().numpy())
+                    from_device_costs(to_host(R_all[r][i]))
                     if self.keep_fields is True else FieldView2(R_all[r][i]))
 
     def _align_host(self, mesh=None) -> List[EngineResult]:
@@ -709,18 +716,19 @@ class BatchedTSAligner:
 
         seeds = self._root_seeds()
 
-        lr_idx = torch.tensor([r for r, _ in self.limits], device=self.device)
-        lq_idx = torch.tensor([q for _, q in self.limits], device=self.device)
+        lr_idx = to_device([r for r, _ in self.limits], self.device)
+        lq_idx = to_device([q for _, q in self.limits], self.device)
 
         def summarize(M_dev):
             """(entry layers (B, nr+1, nq+1) host, per-pair target costs)."""
-            E_b, tv_b = _summ_batch(M_dev, lr_idx, lq_idx)
-            tv = tv_b.cpu().numpy()
-            costs = [
-                INF if int(t.min()) >= int(DEV_INF) // 2 else int(t.min())
-                for t in tv
-            ]
-            return E_b.cpu().numpy(), costs
+            with tracing.span("engine.summary"):
+                E_b, tv_b = _summ_batch(M_dev, lr_idx, lq_idx)
+                tv = to_host(tv_b)
+                costs = [
+                    INF if int(t.min()) >= int(DEV_INF) // 2 else int(t.min())
+                    for t in tv
+                ]
+                return to_host(E_b), costs
 
         logger.debug("batch phase: initial sweep (B=%d nr=%d nq=%d)", B, self.nr, self.nq)
         M_dev = sweep_v(seeds)
@@ -733,7 +741,7 @@ class BatchedTSAligner:
             (keep_fields=True) or lazy views of the pair's slice of the
             device tensor ("device" mode, fields.py)."""
             if self.keep_fields is True:
-                M_host = M_dev_round.cpu().numpy()
+                M_host = to_host(M_dev_round)
                 for i in range(B):
                     if live is None or live[i]:
                         results[i].primary_fields.append(
@@ -751,7 +759,7 @@ class BatchedTSAligner:
 
         def keep_reentry(R_dev_round, live):
             if self.keep_fields is True:
-                R_host = R_dev_round.cpu().numpy()
+                R_host = to_host(R_dev_round)
                 for i in range(B):
                     if live[i]:
                         results[i].reentry_fields.append(
@@ -936,6 +944,13 @@ def align_pairs(
     Falls back to the exact single-pair path per pair when the K-scaled
     algebra would overflow the device int32 domain.
     """
+    with tracing.span("facade.call"):
+        return _align_pairs(config, pairs, names, maximise_total_length, chunk, device=device,
+                            on_batch=on_batch, fused=fused, mesh=mesh)
+
+
+def _align_pairs(config, pairs, names, maximise_total_length, chunk, *, device, on_batch,
+                 fused, mesh):
     import time as _time
 
     from ..aligner import Aligner
@@ -959,7 +974,7 @@ def align_pairs(
         for _key, idxs in sorted(groups.items()):
             for c0 in range(0, len(idxs), 8):
                 part = idxs[c0 : c0 + 8]
-                sub = align_pairs(
+                sub = _align_pairs(
                     config,
                     [pairs[i] for i in part],
                     names=[names[i] for i in part] if names else None,

@@ -20,9 +20,10 @@ decision and every field on the device, as the JAX loop does:
     away here, as in the JAX loop).
 
 The host reads at most two small control tensors a round, each through
-`_read`, which counts them in `control_reads`: before the reentry the
-all-done flag with every kind's per-pair chunk liveness (the module scan's
-launches are planned on the host), after it the batch-wide "unchanged" flag.
+``ops.common.to_host`` with the round as the `round` of its `device.read`
+span (``tracing.py``): before the reentry the all-done flag with every
+kind's per-pair chunk liveness (the module scan's launches are planned on the
+host), after it the batch-wide "unchanged" flag.
 No entry, reentry or primary field crosses to the host inside the loop.  Each
 round's fields stay the tensors that round produced, in lists (the JAX loop's
 preallocated (max_rounds + 1, B, ...) buffers exist only for the static
@@ -31,27 +32,14 @@ shapes of ``while_loop``).
 
 from __future__ import annotations
 
-import itertools
-from typing import List
-
 import numpy as np
 import torch
 
-from ..ops.common import DEV_INF, full_inf
+from .. import tracing
+from ..ops.common import DEV_INF, full_inf, to_device, to_host
 from ..ops.modules import kind_all_chunks
 
 _BIG = DEV_INF // 2  # device-infinite threshold
-
-# (loop, round, elements) of every device-to-host read inside `fused_loop`;
-# loop numbers each call of it in this process.
-control_reads: List[tuple] = []
-_loops = itertools.count(1)
-
-
-def _read(loop: int, k: int, t: torch.Tensor) -> np.ndarray:
-    """The one way a control tensor of round k reaches the host."""
-    control_reads.append((loop, k, t.numel()))
-    return t.cpu().numpy()
 
 
 def _summ(M_b, lr, lq):
@@ -107,7 +95,7 @@ def _chunk_liveness(A_delta, kinds):
             for pk, c in col_fin.items()}
     out = []
     for km0, _, e_bases in kinds:
-        b = torch.tensor(e_bases, device=A_delta.device)
+        b = to_device(e_bases, A_delta.device)
         cs = csum[km0.spec.pk]
         out.append((cs[:, b + km0.chunk] - cs[:, b] > 0).flatten())
     return torch.cat(out).int()
@@ -128,20 +116,21 @@ def _reentry_all_kinds(bt, A_delta, live, k: int):
         at += B * n
         if (eb_b < 0).all():
             continue
-        PAD = max(0, -km0.s_lo)
-        width = PAD + spec.n_anti + 1 + max(0, km0.chunk - 1 + km0.s_hi)
-        slabs = kind_all_chunks(kms, A_mod[spec.pk], eb_b, PAD, width)
-        Rk = torch.stack([s if s is not None else full_inf((spec.n_p + 1, width), bt.device)
-                          for s in slabs])
-        n_real = torch.tensor([lq if spec.pk == 0 else lr for lr, lq in bt.real],
-                              device=bt.device)
-        R_new = _fold_cells(R_new, Rk, n_real, PAD=PAD, n_anti=spec.n_anti,
-                            transpose=spec.pk == 1)
-        bt.route_log.append({"round": k, "kind": (spec.pk, spec.sk, spec.dk),
-                             "route": "fused", "chunks": int((eb_b >= 0).sum())})
+        with tracing.span("rounds.reentry"):
+            PAD = max(0, -km0.s_lo)
+            width = PAD + spec.n_anti + 1 + max(0, km0.chunk - 1 + km0.s_hi)
+            slabs = kind_all_chunks(kms, A_mod[spec.pk], eb_b, PAD, width)
+            Rk = torch.stack([s if s is not None else full_inf((spec.n_p + 1, width), bt.device)
+                              for s in slabs])
+            n_real = to_device([lq if spec.pk == 0 else lr for lr, lq in bt.real], bt.device)
+            R_new = _fold_cells(R_new, Rk, n_real, PAD=PAD, n_anti=spec.n_anti,
+                                transpose=spec.pk == 1)
+            bt.route_log.append({"round": k, "kind": (spec.pk, spec.sk, spec.dk),
+                                 "route": "fused", "chunks": int((eb_b >= 0).sum())})
     return R_new
 
 
+@tracing.spanned("rounds.fused")
 def fused_loop(bt, data: dict, meta: dict) -> dict:
     """Rounds 1..max_rounds of the lockstep batch (``_fused_loop``), the
     state of every pair on the device.  `data`: the device tensors (root
@@ -152,7 +141,6 @@ def fused_loop(bt, data: dict, meta: dict) -> dict:
 
     dev = bt.device
     B = bt.n_pairs
-    loop = next(_loops)
     root, S32, has_lb = data["root"], data["S32"], data["has_lb"]
     lr, lq = data["lr"], data["lq"]
     delta, keep = meta["delta"], meta["keep"]
@@ -176,8 +164,8 @@ def fused_loop(bt, data: dict, meta: dict) -> dict:
         A = _pruned(E, S32, has_lb, best, **prune)
         A = torch.where(done[:, None, None], DEV_INF, A)
         A_delta = torch.where(A < A_launched, A, DEV_INF)
-        control = _read(loop, k, torch.cat([done.all().int()[None],
-                                            _chunk_liveness(A_delta, bt._kind_state)]))
+        control = to_host(torch.cat([done.all().int()[None],
+                                     _chunk_liveness(A_delta, bt._kind_state)]), round=k)
         if control[0]:
             break
         A_launched = torch.minimum(A_launched, A)
@@ -187,7 +175,7 @@ def fused_loop(bt, data: dict, meta: dict) -> dict:
             nr_cnt = nr_cnt + torch.where(done, 0, one)
             R_all.append(R_acc2)
         # the very first launch never counts as unchanged
-        if k > 1 and _read(loop, k, (R_acc2 == R_acc).all()[None])[0]:
+        if k > 1 and to_host((R_acc2 == R_acc).all()[None], round=k)[0]:
             rounds = torch.where(done, rounds, k + 1)
             done = torch.ones_like(done)
             R_acc = R_acc2

@@ -21,6 +21,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from . import alignment as at
+from . import tracing
 from .alignment import Alignment, EqualCostRange, TemplateSwitchEntrance, TemplateSwitchExit
 from .config import TemplateSwitchConfig
 from .costs import INF
@@ -284,6 +285,7 @@ def move_ts_end_backwards(entries, ref, qry, ref_off, qry_off, idx: int) -> bool
 _COMP = None  # set per call
 
 
+@tracing.spanned("record.postprocess")
 def compute_ts_equal_cost_ranges(
     alignment: Alignment,
     config: TemplateSwitchConfig,
@@ -367,6 +369,7 @@ def compute_ts_equal_cost_ranges(
         )
 
 
+@tracing.spanned("record.postprocess")
 def extend_beyond_range(
     alignment: Alignment,
     config: TemplateSwitchConfig,

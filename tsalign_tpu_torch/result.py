@@ -13,6 +13,7 @@ import math
 from dataclasses import dataclass
 from typing import Optional
 
+from . import tracing
 from .alignment import (
     Alignment,
     EqualCostRange,
@@ -79,6 +80,7 @@ class AlignmentResult:
         return self.alignment.cigar() if self.alignment is not None else ""
 
     @classmethod
+    @tracing.spanned("record.result")
     def new(
         cls,
         alignment: Optional[Alignment],

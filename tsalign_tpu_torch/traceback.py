@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from . import alignment as at
+from . import tracing
 from .alignment import Alignment, EqualCostRange, TemplateSwitchEntrance, TemplateSwitchExit
 from .config import TemplateSwitchConfig
 from .costs import INF
@@ -466,9 +467,10 @@ class TracebackEngine:
     def _column(self, pk, sk, dk, spec, p1, b) -> _ModuleColumn:
         key = (pk, sk, dk, p1, b)
         if key not in self._columns:
-            self._columns[key] = _ModuleColumn(
-                spec, self.config, self.ref, self.qry, b, p1, self.allow_sdel
-            )
+            with tracing.span("traceback.module"):
+                self._columns[key] = _ModuleColumn(
+                    spec, self.config, self.ref, self.qry, b, p1, self.allow_sdel
+                )
         return self._columns[key]
 
     def _exit_module(self, pk, sk, dk, spec, p2) -> _ExitModule:
@@ -476,9 +478,10 @@ class TracebackEngine:
         if not hasattr(self, "_exit_modules"):
             self._exit_modules = {}
         if key not in self._exit_modules:
-            self._exit_modules[key] = _ExitModule(
-                spec, self.config, self.ref, self.qry, p2, self.allow_sdel
-            )
+            with tracing.span("traceback.module"):
+                self._exit_modules[key] = _ExitModule(
+                    spec, self.config, self.ref, self.qry, p2, self.allow_sdel
+                )
         return self._exit_modules[key]
 
     def _reconstruct_tsm(self, i, j, v, A_cells):
@@ -599,6 +602,7 @@ class TracebackEngine:
 
     # -- main ---------------------------------------------------------------
 
+    @tracing.spanned("traceback.trace")
     def trace(
         self,
         primary_fields: List[np.ndarray],
