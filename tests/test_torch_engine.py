@@ -19,6 +19,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import tsalign_tpu
 import tsalign_tpu_torch
@@ -26,11 +27,12 @@ from tsalign_tpu.aligner import Aligner as JaxFacade
 from tsalign_tpu.alphabet import get_alphabet
 from tsalign_tpu.config import TemplateSwitchConfig
 from tsalign_tpu.costs import GapAffineCostTable
+from tsalign_tpu.geometry import AlignmentRange
 from tsalign_tpu.jax_engine import JaxAligner
 from tsalign_tpu.pricing import price_alignment
 from tsalign_tpu_torch import alphabet as port_alphabet
 from tsalign_tpu_torch import pricing as port_pricing
-from tsalign_tpu_torch.convert import config_from_reference
+from tsalign_tpu_torch.convert import config_from_reference, range_from_reference
 from tsalign_tpu_torch.engine import TorchAligner
 
 from torch_util import one_torch_thread  # noqa: F401
@@ -90,6 +92,30 @@ def test_no_ts_matches_jax():
     got = tsalign_tpu_torch.align(r, q, device="cpu", no_ts=True)
     assert _record(got) == _record(want)
     assert got.stats()["template_switch_amount"] == 0
+
+
+@pytest.mark.parametrize("ranged", [False, True])
+@pytest.mark.parametrize("L,R", [(0, 0), (1, 1)])
+def test_root_seeds_are_made_on_the_device_as_on_the_host(L, R, ranged):
+    """The root seeds equal the JAX package's host-built ones clamped into the
+    device algebra (DEV_INF everywhere, 0 at flank layer R's GAP_NONE plane at
+    the range's origin), and each call gives new storage: the sweep writes
+    its seeds in place."""
+    rng = np.random.default_rng(70 + L + 2 * ranged)
+    al = get_alphabet("dna")
+    ref, qry = (rng.integers(0, al.size, size=12).astype(np.int8) for _ in range(2))
+    cfg = TemplateSwitchConfig.default(al)
+    cfg.left_flank_length, cfg.right_flank_length = L, R
+    range_ = AlignmentRange(3, 2, 11, 10) if ranged else None
+    want = np.minimum(JaxAligner(cfg, ref, qry, range_=range_)._root_seeds_host(), 2**30 - 1)
+    eng = TorchAligner(config_from_reference(cfg), ref, qry, device="cpu",
+                       range_=range_from_reference(range_))
+    a, b = eng._root_seeds(), eng._root_seeds()
+    assert a.dtype == torch.int32 and a.shape == (L + R + 1, 3, 13, 13)
+    np.testing.assert_array_equal(a.numpy(), want)
+    assert torch.equal(a, b)
+    assert a.untyped_storage().data_ptr() != b.untyped_storage().data_ptr()
+    assert (a == 0).sum() == 1 and int(a[R, 0, 3 if ranged else 0, 2 if ranged else 0]) == 0
 
 
 def test_aligner_needs_a_device():

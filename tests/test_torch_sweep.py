@@ -4,7 +4,9 @@ The same seeded tables and seeds go through the XLA sweep ``_sweep_jit``,
 the Pallas kernels in interpret mode (both flankless ones, and the flanked
 one), and the port's plain ``sweep_flankless_torch`` / ``sweep_flanked_torch``
 (which the wrappers run for CPU tensors).  The port's side is built from the
-port's own config (``convert.config_from_reference``).  The CUDA kernels
+port's own config (``convert.config_from_reference``).  ``PrimarySweep``'s
+tables equal ``JaxPrimarySweep``'s in both layouts, on ranges, poison-padded
+codes, a K-scaled config and empty sequences.  The CUDA kernels
 themselves are held against the plain versions on the card by
 test_torch_kernels.py.
 """
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from tsalign_tpu.alphabet import get_alphabet
+from tsalign_tpu.config import TemplateSwitchConfig
 from tsalign_tpu.costs import INF
 from tsalign_tpu.geometry import AlignmentRange
 from tsalign_tpu.ops.jax_primary import JaxPrimarySweep, _sweep_jit
@@ -171,6 +174,71 @@ def test_flanked_sweep_matches_xla_and_pallas(seed, L, R, ranged, climb):
         got_r = fn(t["subs"], t["dd"], t["seeds"], t["io"], t["ie"], L=L, R=R, climb=climb)
         np.testing.assert_array_equal(got_r.numpy(), want_pallas_r)
     assert _build.launches["sweep_flanked"] == before  # the CPU path launches no kernel
+
+
+def _layout_case(case, L, R):
+    """A config with flank lengths L and R, a pair and a range (or None) of
+    the named kind, for the tables' layout."""
+    rng = np.random.default_rng(5000 + 10 * L + R + 100 * len(case))
+    al = get_alphabet("dna")
+    cfg = random_config(rng, al, flanks=True)
+    ref, qry = random_pair(rng, al, max_len=14, min_len=8)
+    rng_obj = None
+    if case == "inf_entries":
+        for t in (cfg.primary_edit_costs, cfg.left_flank_edit_costs, cfg.right_flank_edit_costs):
+            t.substitution[int(rng.integers(0, al.size)), int(rng.integers(0, al.size))] = INF
+            t.gap_open[int(rng.integers(0, al.size))] = INF
+            t.gap_extend[int(rng.integers(0, al.size))] = INF
+    elif case == "ranged":
+        rng_obj = AlignmentRange(2, 1, len(ref) - 1, len(qry) - 2)
+    elif case == "ranged_open_end":
+        rng_obj = AlignmentRange(3, 2, len(ref) + 1, len(qry))
+    elif case == "padded":
+        ref = np.concatenate([ref, np.full(3, al.size, ref.dtype)])
+        qry = np.concatenate([qry[:4], [al.size], qry[4:], np.full(2, al.size, qry.dtype)])
+        qry = qry.astype(ref.dtype)
+    elif case == "kscaled":
+        cfg = TemplateSwitchConfig.default(get_alphabet("dna-n")).scaled_for_length_tiebreak(512)
+        al = cfg.alphabet
+        ref = rng.integers(0, al.size, size=11).astype(np.int8)
+        qry = rng.integers(0, al.size, size=9).astype(np.int8)
+    elif case == "length_1":
+        ref, qry = ref[:1], qry[:1]
+    elif case == "empty_reference":
+        ref = ref[:0]
+    elif case == "empty_query":
+        qry = qry[:0]
+    cfg.left_flank_length, cfg.right_flank_length = L, R
+    return cfg, ref, qry, rng_obj
+
+
+LAYOUT_CASES = ["inf_entries", "ranged", "ranged_open_end", "padded", "kscaled", "length_1",
+                "empty_reference", "empty_query"]
+
+
+@pytest.mark.parametrize("L,R", [(0, 0), (1, 2), (2, 0)])
+@pytest.mark.parametrize("case", LAYOUT_CASES)
+def test_sweep_tables_are_the_jax_layouts(case, L, R):
+    """Both layouts of the sweep's tables equal ``JaxPrimarySweep``'s, dtype
+    and value, whichever layout the sweep itself runs; `_inputs_on` gives the
+    sweep's own layout as views of one tensor (one copy to a device)."""
+    cfg, ref, qry, rng_obj = _layout_case(case, L, R)
+    jw = JaxPrimarySweep(cfg, ref, qry, range_=rng_obj)
+    pw = PrimarySweep(config_from_reference(cfg), ref, qry,
+                      range_=range_from_reference(rng_obj))
+    for want, got in ((jw.flankless_inputs(), pw.flankless_inputs()),
+                      (jw.flanked_inputs(), pw.flanked_inputs())):
+        assert len(want) == len(got) == 4
+        for a, b in zip(want, got):
+            assert a.dtype == b.dtype == np.int32 and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)
+    on = pw._inputs_on("cpu")
+    want = jw.flankless_inputs() if L + R == 0 else jw.flanked_inputs()
+    for a, t in zip(want, on):
+        assert t.dtype == torch.int32 and t.is_contiguous()
+        np.testing.assert_array_equal(t.numpy(), a)
+    assert len({t.untyped_storage().data_ptr() for t in on}) == 1
+    assert pw._inputs_on(torch.device("cpu")) is on
 
 
 def test_flanked_sweep_wrapper_checks_its_inputs():

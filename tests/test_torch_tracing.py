@@ -217,11 +217,11 @@ def test_cli_profile_trace_shows_the_program_spans(tmp_path, capsys):
 
 def _nots_shapes(n_r, n_q, rows_per_fetch=64):
     """(reads, H2D bytes, D2H bytes) of a flankless no-TS pair on the card:
-    the root seeds and the four sweep tables up; the entry layer, the target
-    value and each 64-row block of the field the traceback walks through
-    down."""
+    the four sweep tables up, in one copy (the root seeds are made on the
+    card); the entry layer, the target value and each 64-row block of the
+    field the traceback walks through down."""
     rows, cols = n_r + 1, n_q + 1
-    h2d = 4 * (3 * rows * cols + rows * cols + rows * 2 + 2 * cols)
+    h2d = 4 * (rows * cols + rows * 2 + 2 * cols)
     blocks = -(-rows // rows_per_fetch)
     d2h = 4 * (rows * cols + 1 + 3 * rows * cols)
     return 2 + blocks, h2d, d2h
@@ -236,7 +236,7 @@ def test_a_nots_pair_counts_its_shapes_on_the_card(cuda, traced):
     _, counts = tracing.take()
     (per_call,) = counts.values()
     reads, h2d, d2h = _nots_shapes(160, 159)
-    assert (reads, h2d, d2h) == (5, 414_728, 412_164)
+    assert (reads, h2d, d2h) == (5, 105_608, 412_164)
     assert per_call == {"device.reads": reads, "copy.h2d_bytes": h2d, "copy.d2h_bytes": d2h}
 
 

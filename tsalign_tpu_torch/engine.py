@@ -207,16 +207,21 @@ class TorchAligner:
 
     @tracing.spanned("engine.seeds")
     def _root_seeds(self) -> torch.Tensor:
+        """(F, 3, n_r+1, n_q+1) root seeds, made on the device: 0 at the
+        range's origin in flank layer R's GAP_NONE plane, DEV_INF elsewhere.
+        A new tensor each call (the sweep writes its seeds in place)."""
         cfg = self.config
         F = cfg.left_flank_length + cfg.right_flank_length + 1
-        seeds = np.full((F, 3, self.n_r + 1, self.n_q + 1), DEV_INF, dtype=np.int32)
+        seeds = full_inf((F, 3, self.n_r + 1, self.n_q + 1), self.device)
+        # fill_ stores the 0 from a kernel's argument; an item assignment
+        # would copy a host scalar up and wait for it.
         seeds[
             cfg.right_flank_length,
             GAP_NONE,
             self.range.reference_offset,
             self.range.query_offset,
-        ] = 0
-        return to_device(seeds, self.device)
+        ].fill_(0)
+        return seeds
 
     def _remaining_bound(self):
         """Admissible remaining-cost field (host numpy), memoized by content;
