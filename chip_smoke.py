@@ -45,7 +45,11 @@ the seconds of it spent in device_ms's profiler sessions, device_ms_s):
      (tsalign_tpu_torch.oracle);
   4. the fixture pairs of tests/fixtures/torch_port_pairs.json (default
      configuration) and torch_port_flanked_pairs.json (flanked default): cost
-     and CIGAR equal the JAX package's (recorded on the CPU);
+     and CIGAR equal the JAX package's (recorded on the CPU), or, under the
+     default configuration where the JAX package's k * delta stop ends
+     before a second template switch (`held_to_fixture`), the cost equal,
+     the alignment repricing to it and the total template-switch length
+     longer: the plain reference's (portbench/reference/dp.py);
   5. the flankless main path at a real size: a seeded 500 x 420 pair under
      the default configuration through tsalign_tpu_torch.align(...,
      device="cuda"); the flankless sweep, the module scan and the assembly
@@ -78,7 +82,7 @@ the seconds of it spent in device_ms's profiler sessions, device_ms_s):
      batch's kernel time on the card by CUDA events around each launch);
      then the eight pairs of tests/fixtures/torch_port_batch_pairs.json
      (60-128 bp, two buckets): cost and CIGAR equal the JAX package's
-     batched engine's (recorded on the CPU);
+     batched engine's (recorded on the CPU), or as in phase 4;
   8. chained mode at the reference's scale: the seeded 230 kb construction
      of scripts/validate_chain_scale.py (10 planted reverse-complement
      stretches, 98 substitutions) under its narrow configuration
@@ -1368,22 +1372,79 @@ def phase3():
             say(3, pair=seed, flanked=flanked, n_r=len(r), n_q=len(q), cost=want, equal=True)
 
 
+def cigar_ts_length(cigar):
+    """Total template-switch length of a CIGAR: the matches, substitutions and
+    insertions inside its template switches ([TS...:inner:anti])."""
+    inner = re.findall(r"\[TS\w+:\[[^\]]*\]:\[[^\]]*\]:-?\d+:([^:]*):-?\d+\]", cigar)
+    return sum(int(n) for part in inner for n, op in re.findall(r"(\d+)([=XID])", part)
+               if op in "=XI")
+
+
+def held_to_fixture(where, p, cost, alignment):
+    """A record of the default config against one recorded from the JAX
+    package: the same cost, and the same CIGAR or, where the port's rounds
+    loop reached a second switch that the JAX package's k * delta stop cuts
+    off, an alignment that reprices to that cost with a longer total
+    template-switch length, the plain reference's (cost, TS length)
+    (portbench/reference/dp.py).  Returns whether the CIGARs are equal."""
+    cigar = alignment.cigar()
+    if cost != p["cost"]:
+        raise AssertionError(f"{where}: port cost {cost} != JAX {p['cost']}")
+    if cigar == p["cigar"]:
+        return True
+    tsl, want_tsl = alignment.ts_total_length(), cigar_ts_length(p["cigar"])
+    if tsl <= want_tsl:
+        raise AssertionError(f"{where}: port {cigar} (TS length {tsl}) != JAX {p['cigar']} "
+                             f"({want_tsl})")
+    al = get_alphabet("dna-n")
+    priced, _ = reprice(TemplateSwitchConfig.default(al), al.encode(p["reference"]),
+                        al.encode(p["query"]), alignment)
+    if priced != cost:
+        raise AssertionError(f"{where}: port {cigar} reprices to {priced}, reported {cost}")
+    ref = reference_optimum(p["reference"], p["query"])
+    if (cost, tsl) != ref:
+        raise AssertionError(f"{where}: port (cost, TS length) {(cost, tsl)} != the plain "
+                             f"reference's {ref}")
+    return False
+
+
+def reference_optimum(reference, query):
+    """(cost, largest total template-switch length at that cost) under the
+    default config, by the benchmark's plain reference on the card."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench"))
+    try:
+        from reference import dp
+    finally:
+        sys.path.pop(0)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench", "configs",
+                           "ts-default.json")) as f:
+        costs = json.load(f)["costs"]
+    return dp.solve(costs, reference, query, no_ts=False, device=DEV)
+
+
 def phase4():
     al = get_alphabet("dna-n")
-    for path, cfg in ((FIXTURE, TemplateSwitchConfig.default(al)),
-                      (FLANKED_FIXTURE, flanked_default(al))):
-        with open(path) as f:
-            fixture = json.load(f)
-        for p in fixture["pairs"]:
-            got = tsalign_tpu_torch.Aligner(costs=cfg, device=DEV).align(
-                p["reference"], p["query"])
-            if got.stats()["cost"] != p["cost"] or got.cigar() != p["cigar"]:
-                raise AssertionError(
-                    f"fixture {p['name']}: port {got.stats()['cost']} {got.cigar()} "
-                    f"!= JAX {p['cost']} {p['cigar']}"
-                )
-            say(4, pair=p["name"], n_r=len(p["reference"]), n_q=len(p["query"]),
-                cost=p["cost"], equal=True)
+    with open(FIXTURE) as f:
+        fixture = json.load(f)
+    for p in fixture["pairs"]:
+        got = tsalign_tpu_torch.Aligner(costs=TemplateSwitchConfig.default(al), device=DEV).align(
+            p["reference"], p["query"])
+        equal = held_to_fixture(f"fixture {p['name']}", p, got.stats()["cost"],
+                                got.result.alignment)
+        say(4, pair=p["name"], n_r=len(p["reference"]), n_q=len(p["query"]),
+            cost=p["cost"], equal=equal, ts_length=got.result.alignment.ts_total_length())
+    with open(FLANKED_FIXTURE) as f:
+        fixture = json.load(f)
+    for p in fixture["pairs"]:
+        got = tsalign_tpu_torch.Aligner(costs=flanked_default(al), device=DEV).align(
+            p["reference"], p["query"])
+        if got.stats()["cost"] != p["cost"] or got.cigar() != p["cigar"]:
+            raise AssertionError(
+                f"fixture {p['name']}: port {got.stats()['cost']} {got.cigar()} "
+                f"!= JAX {p['cost']} {p['cigar']}"
+            )
+        say(4, pair=p["name"], n_r=len(p["reference"]), n_q=len(p["query"]),
+            cost=p["cost"], equal=True)
 
 
 def sweep_call_parts(call, n_rows, Wq, F, reps=20):
@@ -1723,15 +1784,12 @@ def phase7_batch(flanked):
             rounds[i] = res.rounds
 
     # align_pairs' redo pass: under the K-scaled tie-break (K = 2048 at this
-    # bucket) a pair of a config that can rewind whose rounds could carry the
-    # TS length to K is aligned again by the single-pair engine
+    # bucket) a pair of a config that can rewind whose record's total TS
+    # length reaches K is aligned again by the single-pair engine
     K = 2048
-    lw = cfg.length_costs.maximum_finite_input()
 
     def redone(i):
-        n = max(len(pairs[i][0]), len(pairs[i][1]), 1)
-        l_eff = min(int(lw) if lw is not None else n, n)
-        return cfg.can_rewind() and max(0, rounds[i] - 1) * l_eff >= K
+        return cfg.can_rewind() and records[i].alignment.ts_total_length() >= K
 
     torch.cuda.reset_peak_memory_stats()
     _build.launches.clear()
@@ -1792,19 +1850,17 @@ def phase7_batch(flanked):
 def phase7_fixture():
     """The batch fixture's eight pairs (60-128 bp, two buckets) through
     `align_pairs` on the card: cost and CIGAR equal the JAX package's batched
-    engine's (recorded on the CPU)."""
+    engine's (recorded on the CPU), or as `held_to_fixture` allows."""
     al = get_alphabet("dna-n")
     with open(BATCH_FIXTURE) as f:
         fixture = json.load(f)["pairs"]
     pairs = [(p["reference"], p["query"]) for p in fixture]
     records = align_pairs(TemplateSwitchConfig.default(al), pairs,
                           names=[(p["name"], p["name"]) for p in fixture], device=DEV)
-    for p, rec in zip(fixture, records):
-        if rec.result.cost != p["cost"] or rec.cigar() != p["cigar"]:
-            raise AssertionError(f"batch fixture {p['name']}: port {rec.result.cost} "
-                                 f"{rec.cigar()} != JAX {p['cost']} {p['cigar']}")
+    equal = [held_to_fixture(f"batch fixture {p['name']}", p, rec.result.cost,
+                             rec.alignment) for p, rec in zip(fixture, records)]
     say(7, batch_fixture=[p["name"] for p in fixture], costs=[p["cost"] for p in fixture],
-        equal=True)
+        equal=equal)
 
 
 def phase8_chain():
@@ -2474,8 +2530,9 @@ def phase10(r, q, record, batch7, fused_run):
 
 # The unsharded host rounds loop's assembly calls on phase 7's flankless batch
 # (its rounds are the fused loop's, phase 7's): a mesh splits the launches and
-# must leave them as they are.
-HOST_LOOP_BATCH_ASSEMBLY_CALLS = 2200
+# must leave them as they are.  (2200 before the k * delta stop capped the
+# length bonus, which added rounds.)
+HOST_LOOP_BATCH_ASSEMBLY_CALLS = 2256
 
 
 def meshes(axis, shards=(1, 4)):
@@ -2682,7 +2739,7 @@ def phase11_sp_reentry(main_pair):
 def phase11_data_axis(batch7):
     """(d) The batched engine's data axis over 2 shards of the card: the
     batch fixture's eight pairs through align_pairs(mesh=) against the JAX
-    package's records, then phase 7's flankless batch (the mesh runs the host
+    package's records (`held_to_fixture`), then phase 7's flankless batch (the mesh runs the host
     rounds loop): its records equal the fused loop's of phase 7 but for
     FUSED_MAY_DIFFER, its rounds the fused loop's and its assembly calls the
     unsharded host loop's; the module-scan launches of each shard."""
@@ -2696,11 +2753,9 @@ def phase11_data_axis(batch7):
     t0 = time.monotonic()
     records = align_pairs(cfg, [(p["reference"], p["query"]) for p in fixture],
                           names=[(p["name"], p["name"]) for p in fixture], device=DEV, mesh=mesh)
-    for p, rec in zip(fixture, records):
-        if rec.result.cost != p["cost"] or rec.cigar() != p["cigar"]:
-            raise AssertionError(f"mesh batch fixture {p['name']}: port {rec.result.cost} "
-                                 f"{rec.cigar()} != JAX {p['cost']} {p['cigar']}")
-    say(11, step="d_fixture", mesh=mesh_name, pairs=len(records), equal=True,
+    equal = [held_to_fixture(f"mesh batch fixture {p['name']}", p, rec.result.cost,
+                             rec.alignment) for p, rec in zip(fixture, records)]
+    say(11, step="d_fixture", mesh=mesh_name, pairs=len(records), equal=equal,
         wall_s=time.monotonic() - t0)
 
     rounds = {}

@@ -12,7 +12,8 @@ the cell's pairs (``portbench/harness`` makes them, and sets the threads, as
 the benchmark does; nothing of it is changed), after the benchmark's
 warm-up, with ``tsalign_tpu_torch.tracing`` on and, on the card,
 torch.profiler recording the card's work.  It prints one JSON line: a pair,
-the counters (device reads, KiB up and down) and the seconds in device reads
+the counters (device reads, KiB up and down, engine passes, rounds, and the
+rounds loops that the k * delta stop ended) and the seconds in device reads
 (`device.read`), in the engine's tables and root seeds (`engine.tables`,
 `engine.seeds`) and in the traceback's own walk (`traceback.trace` less its
 children, which are its row-block reads and its module DPs); the spans a
@@ -41,6 +42,8 @@ from harness import cells, host  # noqa: E402  (neither imports torch)
 
 SPAN_SHARES = {"read_wait_s": ("device.read",), "engine_prep_s": ("engine.tables", "engine.seeds")}
 OWN_IDLE = ("rounds.align", "facade.align", "facade.engine_pass")
+COUNTS = {"engine_passes": "facade.engine_passes", "rounds": "rounds.rounds",
+          "kdelta_stops": "rounds.kdelta_stops"}
 
 
 def window(spec, seed, seconds, device):
@@ -92,6 +95,7 @@ def window(spec, seed, seconds, device):
            "a_pair": {"device_reads": totals.get("device.reads", 0) / n,
                       "h2d_kib": totals.get("copy.h2d_bytes", 0) / 1024 / n,
                       "d2h_kib": totals.get("copy.d2h_bytes", 0) / 1024 / n,
+                      **{k: totals.get(name, 0) / n for k, name in COUNTS.items()},
                       **{k: union_s(v) / n for k, v in SPAN_SHARES.items()},
                       "traceback_walk_s": trace.self_seconds(host_spans, "traceback.trace") / n,
                       "spans": {k: v / n for k, v in sorted(by_name.items())}}}

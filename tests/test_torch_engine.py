@@ -35,7 +35,7 @@ from tsalign_tpu_torch import pricing as port_pricing
 from tsalign_tpu_torch.convert import config_from_reference, range_from_reference
 from tsalign_tpu_torch.engine import TorchAligner
 
-from torch_util import one_torch_thread  # noqa: F401
+from torch_util import cost_and_ts_length, one_torch_thread, reference_optimum  # noqa: F401
 from util import binding_window_config, related_pair_scaled
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -51,22 +51,30 @@ def _pair(seed):
     return al.decode(ref), al.decode(qry)
 
 
-def _record(res):
-    """The TOML record without its wall-time lines."""
+def _record(res, work=True):
+    """The TOML record without its wall-time lines (and, with `work` False,
+    without its count of DP cells, which grows with the engine's rounds)."""
+    drop = ("duration_seconds", "runtime") + (() if work else ("opened_nodes",))
     return "\n".join(
         line for line in res.to_toml().splitlines()
-        if not line.startswith(("duration_seconds", "runtime"))
+        if not line.startswith(drop)
     )
 
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_align_matches_jax_record(seed):
+    """The port's record has the plain reference's cost and total
+    template-switch length; the JAX package's has them too at these seeds,
+    and the records are equal but for the DP cells counted (the port's
+    rounds loop stops later: its k * delta stop caps each template switch's
+    length bonus, the JAX package's stops at round 2)."""
     r, q = _pair(seed)
     want = tsalign_tpu.align(r, q, engine="jax")
     got = tsalign_tpu_torch.align(r, q, device="cpu")
+    assert cost_and_ts_length(got) == reference_optimum(r, q)
     assert got.stats()["cost"] == want.stats()["cost"]
     assert got.cigar() == want.cigar()
-    assert _record(got) == _record(want)
+    assert _record(got, work=False) == _record(want, work=False)
     al = get_alphabet("dna-n")
     cfg = TemplateSwitchConfig.default(al)
     assert price_alignment(cfg, al.encode(r), al.encode(q), want.result.alignment) == (
@@ -127,12 +135,21 @@ def test_aligner_needs_a_device():
 
 def test_plain_text_view_is_not_ported(capsys):
     """The plain-text view prints through the port's copy of ``show/``, as the
-    JAX facade's does (the name dates from when it raised)."""
+    JAX facade's does for the same record (the name dates from when it
+    raised).  The record is the port's, which has the plain reference's cost
+    and total template-switch length (two switches; the JAX package's
+    record has one, its rounds loop stopping at round 2)."""
+    from tsalign_tpu.aligner import TSPairwiseAlignment
+    from tsalign_tpu.result import AlignmentResult
+
     r, q = "ACGTTGCAAGCTTGACCATGGCA", "ACGTTGCATTGCAAGTTGACCATGGCA"
-    tsalign_tpu_torch.align(r, q, device="cpu").viz_template_switches()
+    res = tsalign_tpu_torch.align(r, q, device="cpu")
+    assert cost_and_ts_length(res) == reference_optimum(r, q) == (4, 12)
+    res.viz_template_switches()
     got = capsys.readouterr().out
-    tsalign_tpu.align(r, q, engine="numpy").viz_template_switches()
+    TSPairwiseAlignment(AlignmentResult.from_toml(res.to_toml())).viz_template_switches()
     assert got == capsys.readouterr().out
+    assert "Found 2 template switches" in got
 
 
 def _reference_flanked_default():

@@ -36,8 +36,9 @@ from tsalign_tpu.config import TemplateSwitchConfig
 from tsalign_tpu_torch import lower_bounds, oracle, pricing
 from tsalign_tpu_torch.convert import config_from_reference, range_from_reference
 from tsalign_tpu_torch.engine import TorchAligner
+from tsalign_tpu_torch.result import AlignmentResult
 
-from torch_util import one_torch_thread  # noqa: F401
+from torch_util import cost_and_ts_length, one_torch_thread, reference_optimum  # noqa: F401
 from util import random_config, random_pair, related_pair
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -238,8 +239,11 @@ def test_command_line_runs_with_both_packages_blocked(tmp_path):
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.startswith("cost: 4\ncigar: 8=[TSQRF:")
+    assert out.stdout.startswith("cost: 4\ncigar: 8=[TS")
     assert "Showing template switch 1" in out.stdout
+    rec = AlignmentResult.from_toml((tmp_path / "rec.toml").read_text())
+    ref, qry = "ACGTTGCAAGCTTGACCATGGCA", "ACGTTGCATTGCAAGTTGACCATGGCA"
+    assert (rec.cost, rec.alignment.ts_total_length()) == reference_optimum(ref, qry) == (4, 12)
     assert (tmp_path / "rec.svg").read_text().startswith("<svg")
 
 
@@ -322,6 +326,11 @@ def _record(res):
 
 
 def test_overflow_falls_back_to_the_numpy_engine():
+    """The device engine refuses the config; the facade's record is then the
+    port's numpy engine's, with the plain reference's cost and total
+    template-switch length (an rrf switch costing 2^28 is never taken).  The
+    JAX package's record stops at one switch (its rounds loop stops at round
+    2), so its cost alone is compared."""
     al = get_alphabet("dna-n")
     cfg = TemplateSwitchConfig.default(al)
     cfg.base_cost["rrf"] = 2**28
@@ -331,8 +340,11 @@ def test_overflow_falls_back_to_the_numpy_engine():
         TorchAligner(port_cfg, al.encode(r), al.encode(q), device="cpu")
     want = JaxFacade(costs=cfg, engine="jax").align(r, q)
     got = tsalign_tpu_torch.Aligner(costs=port_cfg, device="cpu").align(r, q)
+    numpy = tsalign_tpu_torch.Aligner(costs=port_cfg, engine="numpy").align(r, q)
     assert got.has_target()
-    assert _record(got) == _record(want)
+    assert _record(got) == _record(numpy)
+    assert cost_and_ts_length(got) == reference_optimum(r, q, {"rrf": 2**28})
+    assert got.stats()["cost"] == want.stats()["cost"]
 
 
 def _small_case(seed, flanks):

@@ -6,8 +6,10 @@ On the CPU: tracing is off by default and then records nothing; on, the
 spans of one call share its id and nest inside their parents, a no-TS pair
 records exactly the no-TS set of spans, a TS pair adds the reentry of each
 round and kind and the traceback's module DPs, the engine-pass spans equal
-the benchmark harness's count of passes, crossings on the CPU count nothing,
-and the command line's ``--profile`` trace shows the program's spans.
+the benchmark harness's count of passes, each call counts its engine passes,
+its rounds and the rounds loops the k * delta stop ended, crossings on the
+CPU count nothing, and the command line's ``--profile`` trace shows the
+program's spans.
 
 Marked `cuda` (this file imports no JAX, so they run on a machine with a
 card): a 160 x 159 no-TS pair's reads and bytes are the ones its shapes
@@ -36,6 +38,9 @@ from tsalign_tpu_torch.ops import common
 from torch_util import cuda, one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CROSSINGS = {"device.reads", "copy.h2d_bytes", "copy.d2h_bytes"}
+WITNESS = ("GAGCTTAAGCACAGGCCTGGGC", "GAGTGCTTAACAAGCCTGGGC")  # cost 4 by two switches, 13 bases
 
 NOTS_SPANS = {"facade.call", "facade.settings", "facade.align", "facade.engine_pass",
               "engine.init", "rounds.align", "engine.seeds", "engine.tables", "engine.sweep",
@@ -73,6 +78,18 @@ def traced():
 def _align(kind, device="cpu", **kw):
     r, q = _planted(40, 1)
     return tsalign_tpu_torch.align(r, q, device=device, no_ts=kind == "nots", **kw)
+
+
+def _crossings(counts):
+    """The crossing counters of each call that has any."""
+    out = {call: {k: v for k, v in per.items() if k in CROSSINGS} for call, per in counts.items()}
+    return {call: per for call, per in out.items() if per}
+
+
+def _passes(counts):
+    """Each call's engine passes, rounds and k * delta stops."""
+    return [{k: per.get(k) for k in ("facade.engine_passes", "rounds.rounds",
+                                     "rounds.kdelta_stops")} for per in counts.values()]
 
 
 def _inside(spans, i, name):
@@ -120,7 +137,8 @@ def test_spans_of_one_call_share_its_id_and_nest(traced, kind):
     _align(kind)
     spans, counts = tracing.take()
     roots = _check_nesting(spans)
-    assert len(roots) == 2 and counts == {}  # crossings on the CPU count nothing
+    assert len(roots) == 2 and _crossings(counts) == {}  # crossings on the CPU count nothing
+    assert set(counts) == set(roots)
     assert tracing.take() == ([], {})
 
 
@@ -128,7 +146,9 @@ def test_a_nots_pair_records_the_nots_spans_and_no_crossing_on_the_cpu(traced):
     _align("nots")
     spans, counts = tracing.take()
     assert {s[0] for s in spans} == NOTS_SPANS
-    assert counts == {}
+    assert _crossings(counts) == {}
+    assert _passes(counts) == [{"facade.engine_passes": 1, "rounds.rounds": 1,
+                                "rounds.kdelta_stops": 0}]
     reads = [s for s in spans if s[0] == "device.read"]
     assert all(spans[s[3]][0] in ("engine.summary", "traceback.trace", "engine.sweep")
                for s in reads)
@@ -150,7 +170,7 @@ def test_a_ts_pair_adds_reentry_and_module_spans(traced, fused):
     assert bool(control) == fused and all(a["round"] >= 1 for a in control)
     assert all(_inside(spans, i, "traceback.trace")
                for i, s in enumerate(spans) if s[0] == "traceback.module")
-    assert counts == {}
+    assert _crossings(counts) == {}
 
 
 @pytest.mark.parametrize("kind", ["nots", "ts"])
@@ -172,13 +192,37 @@ def test_engine_pass_spans_equal_the_harness_count(traced, kind):
     assert all(_inside(spans, i, "facade.align") for i in passes)
 
 
+@pytest.mark.parametrize("fused", [False, True])
+def test_rounds_and_passes_are_counted_on_the_witness(fused):
+    """The witness's rounds loop runs to round 3, where its second template
+    switch is found, and the TSLB stop ends it; an equal pair's ends at round
+    1 by the k * delta stop.  Off, nothing is recorded."""
+    tracing.take()
+    tsalign_tpu_torch.align(*WITNESS, device="cpu", fused=fused)
+    assert tracing.take() == ([], {})
+    tracing.enable()
+    try:
+        res = tsalign_tpu_torch.align(*WITNESS, device="cpu", fused=fused)
+        tsalign_tpu_torch.align(WITNESS[0], WITNESS[0], device="cpu", fused=fused)
+    finally:
+        tracing.disable()
+    _, counts = tracing.take()
+    assert res.stats()["template_switch_amount"] == 2
+    assert _passes(counts) == [
+        {"facade.engine_passes": 1, "rounds.rounds": 3, "rounds.kdelta_stops": 0},
+        {"facade.engine_passes": 1, "rounds.rounds": 1, "rounds.kdelta_stops": 1}]
+
+
 def test_align_pairs_is_one_call(traced):
     cfg = tsalign_tpu_torch.TemplateSwitchConfig.default(tsalign_tpu_torch.get_alphabet("dna-n"))
     recs = tsalign_tpu_torch.align_pairs(cfg, [_planted(32, 4, 8), _planted(28, 5, 8)],
                                          device="cpu")
     spans, counts = tracing.take()
     roots = _check_nesting(spans)
-    assert len(recs) == 2 and len(roots) == 1 and counts == {}
+    assert len(recs) == 2 and len(roots) == 1 and _crossings(counts) == {}
+    (per_call,) = counts.values()
+    assert "facade.engine_passes" not in per_call  # one batched pass, no facade
+    assert per_call["rounds.rounds"] >= 2 * 2 and per_call["rounds.kdelta_stops"] <= 2
     assert {"engine.seeds", "engine.sweep", "rounds.reentry", "traceback.trace"} <= {
         s[0] for s in spans}
     assert sum(s[0] == "traceback.trace" for s in spans) == 2
@@ -234,7 +278,7 @@ def test_a_nots_pair_counts_its_shapes_on_the_card(cuda, traced):
     tracing.enable()
     tsalign_tpu_torch.align(*_twin(2), device="cuda", no_ts=True)
     _, counts = tracing.take()
-    (per_call,) = counts.values()
+    (per_call,) = _crossings(counts).values()
     reads, h2d, d2h = _nots_shapes(160, 159)
     assert (reads, h2d, d2h) == (5, 105_608, 412_164)
     assert per_call == {"device.reads": reads, "copy.h2d_bytes": h2d, "copy.d2h_bytes": d2h}

@@ -1,4 +1,8 @@
-"""Shared fixtures of the port's tests (tests/test_torch_*.py)."""
+"""Shared fixtures and helpers of the port's tests (tests/test_torch_*.py)."""
+
+import json
+import os
+import sys
 
 import pytest
 import torch
@@ -21,3 +25,28 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def reference_optimum(reference: str, query: str, base_cost=None):
+    """(cost, the largest total template-switch length at that cost) of a
+    pair under the default costs and the maximise tie-break, by the
+    benchmark's plain reference (``portbench/reference/dp.py``, which shares
+    no code with either package); `base_cost` replaces entries of the base
+    costs (a cost of 2^28 or more is infinite there)."""
+    sys.path.insert(0, os.path.join(ROOT, "portbench"))
+    try:
+        from reference import dp
+    finally:
+        sys.path.remove(os.path.join(ROOT, "portbench"))
+    with open(os.path.join(ROOT, "portbench", "configs", "ts-default.json")) as f:
+        costs = json.load(f)["costs"]
+    costs["base_cost"].update(base_cost or {})
+    return dp.solve(costs, reference, query, no_ts=False)
+
+
+def cost_and_ts_length(res):
+    """(cost, total template-switch length) of a record of the port."""
+    return res.stats()["cost"], res.result.alignment.ts_total_length()

@@ -122,12 +122,18 @@ class Aligner:
         values are K*cost - ts_total_length; minimizing that is the
         lexicographic (cost, -ts_total_length) optimum.
 
-        K-soundness: the decomposition is exact iff every path the engine
-        represents has ts_total_length < K.  Without rewinding reentries
-        (config.can_rewind() False) the discounted ops consume monotone
-        primary positions, so tsl <= n_r + n_q < K.  With rewind, tsl is
-        bounded by (#TSMs) * l_max <= (rounds - 1) * l_max, checked
-        post-hoc; on violation K is escalated and the engine re-run.
+        K-soundness: the engine returns comp, the least K*cost - tsl over
+        all paths, and an alignment P that attains it.  If tsl(P) < K, P is
+        the lexicographic optimum: a path Q with cost(Q) < cost(P) would
+        give K*cost(P) - tsl(P) <= K*cost(Q) - tsl(Q) <= K*(cost(P) - 1),
+        so tsl(P) >= K; and among the paths of P's cost none has a larger
+        tsl, since its value would be below comp.  So cost = ceil(comp / K)
+        = cost(P).  Without rewinding reentries (config.can_rewind() False)
+        the discounted ops consume monotone primary positions, so every
+        path has tsl <= n_r + n_q < K.  With rewind, the returned
+        alignment's own tsl (``Alignment.ts_total_length``) is checked
+        post-hoc; where it reaches K, K is escalated past it and the engine
+        re-run.
         Degenerate configs (rewind + possibly-zero-cost TSMs) make the
         maximise objective unbounded — the reference's label-correcting
         search would not terminate there — so the tie-break is dropped and
@@ -146,9 +152,6 @@ class Aligner:
         if maximise:
             while K < len(ref_arr) + len(qry_arr) + 2:
                 K *= 2
-        n_max = max(len(ref_arr), len(qry_arr), 1)
-        lw = base_cfg.length_costs.maximum_finite_input()
-        l_max_eff = min(int(lw) if lw is not None else n_max, n_max)
         for _ in range(4):
             cfg = (
                 base_cfg.scaled_for_length_tiebreak(K) if K > 1 else base_cfg
@@ -161,10 +164,10 @@ class Aligner:
                 return INF, alignment
             if K == 1:
                 return comp, alignment
-            t_bound = max(0, getattr(self, "_last_rounds", 1) - 1) * l_max_eff
-            if not rewind or max_ts == 0 or t_bound < K:
+            tsl = alignment.ts_total_length()
+            if not rewind or max_ts == 0 or tsl < K:
                 return -(-comp // K), alignment
-            while K <= t_bound:
+            while K <= tsl:
                 K *= 2
         # Escalation did not settle (pathological); the raw optimum is exact.
         comp, alignment = self._run_engine_raw(
@@ -184,6 +187,7 @@ class Aligner:
         allowed_primaries,
         prune_range: bool,
     ) -> Tuple[int, Alignment]:
+        tracing.count("facade.engine_passes")
         kw = dict(
             range_=range_,
             max_template_switches=max_ts,

@@ -158,6 +158,15 @@ class Alignment:
         else:
             self.entries.append((n, t))
 
+    def ts_total_length(self) -> int:
+        """Total template-switch length: the primary characters consumed
+        inside template switches (secondary matches, substitutions and
+        insertions), what the length cost and the tie-break's bonus count."""
+        return sum(
+            n for n, t in self.entries
+            if t in (SECONDARY_MATCH, SECONDARY_SUBSTITUTION, SECONDARY_INSERTION)
+        )
+
     def iter_flat(self):
         """Flat op stream; non-repeatable ops (entrances/exits) yield once
         regardless of their RLE multiplicity (iter.rs:62-84)."""

@@ -39,7 +39,7 @@ from .costs import INF
 from .fields import FieldView2, FieldView4
 from .geometry import AlignmentRange
 from .lower_bounds import compute_remaining_bound
-from .numpy_engine import min_tsm_cost_bound
+from .numpy_engine import count_rounds, kdelta_stop, min_tsm_cost_bound, rounds_stop_delta
 from .ops.common import (
     DEV_INF,
     from_device_costs,
@@ -97,6 +97,7 @@ class EngineResult:
     rounds: int
     primary_fields: List = field(default_factory=list)
     reentry_fields: List = field(default_factory=list)
+    kdelta_stop: bool = False  # the k * delta stop ended the rounds loop
 
 
 class TorchAligner:
@@ -501,8 +502,13 @@ class TorchAligner:
         fused = self._fused_delegate()
         if fused is not None:
             self.loop = "fused"
-            return fused
+            return fused  # counted by the batched engine
         self.loop = "host"
+        res = self._host_loop()
+        count_rounds([res])
+        return res
+
+    def _host_loop(self) -> EngineResult:
         res = EngineResult(cost=INF, rounds=0)
 
         def keep(M, E):
@@ -539,14 +545,14 @@ class TorchAligner:
 
         E, best, M = self._sweep_summary(root, True)
         keep(M, E)
-        delta = min_tsm_cost_bound(self.config)
+        delta = rounds_stop_delta(self.config, self.n_r_real, self.n_q_real)
         kinds = None
         A = None
         A_launched = None
         R_acc = None
         for k in range(1, MAX_ROUNDS + 1):
-            if delta > 0 and k * delta > best:
-                res.cost, res.rounds = best, k
+            if kdelta_stop(k, delta, best):
+                res.cost, res.rounds, res.kdelta_stop = best, k, True
                 return res
             if not self._can_improve_cells(E, best):
                 res.cost, res.rounds = best, k
@@ -585,7 +591,7 @@ class TorchAligner:
 
     def align_with_traceback(self):
         result = self.align()
-        self.last_rounds = result.rounds  # K-soundness guard (aligner)
+        self.last_rounds = result.rounds
         return align_with_traceback(self, result)
 
 

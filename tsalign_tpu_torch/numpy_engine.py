@@ -32,11 +32,12 @@ from typing import List, Optional
 
 import numpy as np
 
+from . import tracing
 from .config import TemplateSwitchConfig
 from .costs import INF
 from .geometry import AlignmentRange
 from .ops.primary_sweep import GAP_NONE, PrimarySweep
-from .ops.tsm_modules import compute_reentry_fields
+from .ops.tsm_modules import compute_reentry_fields, real_seq_length
 
 _DK = ("Forward", "Reverse")
 
@@ -49,6 +50,7 @@ class EngineResult:
     # (n_r+1, n_q+1); kept for traceback.
     primary_fields: List[np.ndarray] = field(default_factory=list)
     reentry_fields: List[np.ndarray] = field(default_factory=list)
+    kdelta_stop: bool = False  # the k * delta stop ended the rounds loop
 
 
 class DenseAligner:
@@ -182,6 +184,11 @@ class DenseAligner:
         )
 
     def align(self) -> EngineResult:
+        result = self._align()
+        count_rounds([result])
+        return result
+
+    def _align(self) -> EngineResult:
         cfg = self.config
         F = cfg.left_flank_length + cfg.right_flank_length + 1
         root = self._root_seeds()
@@ -216,14 +223,17 @@ class DenseAligner:
         best = self._target_cost(M)
         budget = self._sdel_budget(best)
         self._last_budget = budget
-        delta = min_tsm_cost_bound(cfg)
+        delta = rounds_stop_delta(
+            cfg,
+            real_seq_length(self.ref, cfg.alphabet.size),
+            real_seq_length(self.qry, cfg.alphabet.size),
+        )
         A = None
         for k in range(1, self.max_rounds + 1):
-            # Exact early stop: a further improvement needs a path with k
-            # template switches, costing at least k * delta.
-            if delta > 0 and k * delta > best:
+            if kdelta_stop(k, delta, best):
                 results.cost = best
                 results.rounds = k
+                results.kdelta_stop = True
                 return results
             # TSLB improvement stop: no entry cell can start a further TSM
             # and still strictly beat the incumbent.
@@ -329,7 +339,7 @@ class DenseAligner:
 
     def align_with_traceback(self):
         result = self.align()
-        self.last_rounds = result.rounds  # K-soundness guard (aligner)
+        self.last_rounds = result.rounds
         return _align_with_traceback(self, result)
 
 
@@ -374,21 +384,17 @@ def align_cost(
     return DenseAligner(config, reference, query, **kwargs).align().cost
 
 
-def min_tsm_cost_bound(config) -> int:
-    """Safe lower bound on the total extra cost of one template switch:
-    min base + min offset + min length + min ldiff + min anti, minus the
-    maximum possible secondary-length discount when the tie-break bonus is
-    active.  Used to stop the round iteration exactly: a round-(k+1)
-    improvement requires a path with k+1 TSMs costing >= (k+1) * bound."""
-    from .costs import INF as _INF
-
+def _min_tsm_cost(config) -> int:
+    """Least cost of one template switch with no length bonus: min base +
+    min offset + min length + min ldiff + min anti over the enabled kinds
+    (INF when none is)."""
     def fmin(fn):
-        vals = [c for _, c in fn.points if c < _INF]
-        return min(vals) if vals else _INF
+        vals = [c for _, c in fn.points if c < INF]
+        return min(vals) if vals else INF
 
-    best = _INF
+    best = INF
     for key, base in config.base_cost.items():
-        if base >= _INF:
+        if base >= INF:
             continue
         same = key[0] == key[1]
         off = fmin(config.rr_qq_offset_costs if same else config.rq_qr_offset_costs)
@@ -397,8 +403,63 @@ def min_tsm_cost_bound(config) -> int:
             config.length_difference_costs
         ) + d
         best = min(best, total)
-    if best >= _INF:
-        return _INF
+    return best
+
+
+def min_tsm_cost_bound(config) -> int:
+    """Safe lower bound on the total extra cost of one template switch:
+    min base + min offset + min length + min ldiff + min anti, minus the
+    maximum possible secondary-length discount when the tie-break bonus is
+    active and the length cost caps the length.  Where it does not (the
+    default config), nothing is subtracted: the value is then a cost with
+    no bonus, which the pruning thresholds pair with a slack of their own;
+    the rounds loops stop on `rounds_stop_delta` instead."""
+    best = _min_tsm_cost(config)
+    if best >= INF:
+        return INF
     lmax = config.length_costs.maximum_finite_input()
     lmax = int(lmax) if lmax is not None else 0
     return max(0, best - config.secondary_length_bonus * lmax)
+
+
+def rounds_stop_delta(config, n_r: int, n_q: int) -> int:
+    """The least extra value one more template switch adds to a path of the
+    pair (n_r, n_q), for the rounds loops' exact stop: a path that round k
+    could still improve has k template switches, so once k * delta exceeds
+    the incumbent the loop is done.  0 disables the stop.
+
+    Proof of the bound.  A template switch costs at least `_min_tsm_cost`,
+    less `secondary_length_bonus` for each primary character it consumes
+    (its secondary matches, substitutions and insertions: the length that
+    the length cost is charged on).  Those characters are consecutive
+    characters of one of the two sequences, so there are at most
+    max(n_r, n_q) of them, and where the length cost has a finite largest
+    input l_max, at most l_max."""
+    best = _min_tsm_cost(config)
+    if best >= INF:
+        return INF
+    n = max(n_r, n_q)
+    l_max = config.length_costs.maximum_finite_input()
+    if l_max is not None:
+        n = min(n, int(l_max))
+    return max(0, best - config.secondary_length_bonus * n)
+
+
+def kdelta_stop(k, delta, best):
+    """Whether the k * delta stop ends a rounds loop at the top of round k:
+    every path round k could still add has k template switches, each worth
+    at least `delta` (`rounds_stop_delta`), so none beats the incumbent
+    `best` once k * delta > best.  Python ints, or tensors of one value a
+    pair (the fused loop)."""
+    return (delta > 0) & (k * delta > best)
+
+
+def count_rounds(results) -> None:
+    """Counts each engine result's rounds (`rounds.rounds`) and whether the
+    k * delta stop ended its loop (`rounds.kdelta_stops`, 1 or 0) while
+    tracing is on."""
+    if not tracing.enabled:
+        return
+    for r in results:
+        tracing.count("rounds.rounds", int(r.rounds))
+        tracing.count("rounds.kdelta_stops", int(r.kdelta_stop))

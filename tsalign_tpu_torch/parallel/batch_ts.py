@@ -75,7 +75,7 @@ from ..costs import INF
 from ..engine import EngineResult
 from ..fields import FieldView2, FieldView4
 from ..geometry import AlignmentRange
-from ..numpy_engine import min_tsm_cost_bound
+from ..numpy_engine import count_rounds, kdelta_stop, min_tsm_cost_bound, rounds_stop_delta
 from ..ops.common import (
     DEV_INF,
     device_key,
@@ -620,8 +620,16 @@ class BatchedTSAligner:
         if mesh is not None:
             if self._fused_asked:
                 raise ValueError("fused=True takes no mesh: a mesh runs the host rounds loop")
-            return self._align_host(mesh)
-        return self._align_fused() if self.fused else self._align_host()
+            results = self._align_host(mesh)
+        else:
+            results = self._align_fused() if self.fused else self._align_host()
+        count_rounds(results)
+        return results
+
+    def _stop_deltas(self) -> List[int]:
+        """Each pair's k * delta stop value (``numpy_engine.rounds_stop_delta``
+        at its real lengths)."""
+        return [rounds_stop_delta(self.config, lr, lq) for lr, lq in self.real]
 
     def _align_fused(self) -> List[EngineResult]:
         """The rounds loop with its stop algebra on the device
@@ -633,8 +641,12 @@ class BatchedTSAligner:
         arrays_b = self._stack_sweep_arrays()
         root = self._root_seeds()
         L, R = self.config.left_flank_length, self.config.right_flank_length
-        lr = to_device([r for r, _ in self.limits], self.device)
-        lq = to_device([q for _, q in self.limits], self.device)
+        # each pair's limits and k * delta stop value (from its real
+        # lengths, which a range's limits may be shorter than) in one upload
+        stop = self._stop_deltas()
+        lr, lq, stop_dev = to_device(
+            [[r for r, _ in self.limits], [q for _, q in self.limits],
+             [min(d, int(DEV_INF)) for d in stop]], self.device)
         M0 = _sweep_batch(arrays_b, root, L=L, R=R)
         with tracing.span("engine.summary"):
             E0, t0 = fused_rounds._summ(M0, lr, lq)
@@ -647,11 +659,12 @@ class BatchedTSAligner:
         delta = min_tsm_cost_bound(self.config)
         if all(b < INF for b in best0):
             E0_host = to_host(E0)
-            if all((delta > 0 and delta > best0[i])
-                   or not self._can_improve_pair(i, E0_host[i], best0[i])
+            kd = [kdelta_stop(1, stop[i], best0[i]) for i in range(B)]
+            if all(kd[i] or not self._can_improve_pair(i, E0_host[i], best0[i])
                    for i in range(B)):
                 for i in range(B):
                     results[i].cost = best0[i]
+                    results[i].kdelta_stop = kd[i]
                 self._keep_fused_fields(results, [M0], [], [E0], np.ones(B, np.int32),
                                         np.zeros(B, np.int32))
                 return results
@@ -661,7 +674,8 @@ class BatchedTSAligner:
         S32, has_lb = self._bounds_device()
         data = dict(root=root, arrays=arrays_b, S32=S32, has_lb=has_lb, lr=lr, lq=lq, E0=E0,
                     M0=M0, best0=torch.where(t0 >= DEV_INF // 2, DEV_INF, t0))
-        meta = dict(delta=delta, slack=self.config.secondary_length_bonus * (self.nr + self.nq),
+        meta = dict(delta=delta, stop=stop_dev,
+                    slack=self.config.secondary_length_bonus * (self.nr + self.nq),
                     max_rounds=self.max_rounds, keep=keep, L=L, R=R)
         out = fused_rounds.fused_loop(self, data, meta)
         if not bool(to_host(out["done"].all())):
@@ -670,10 +684,11 @@ class BatchedTSAligner:
                 f"max_rounds={self.max_rounds}"
             )
         best = to_host(out["best"])
-        rounds = to_host(out["rounds"])
+        rounds, kd = to_host(torch.stack((out["rounds"], out["kdelta"].to(out["rounds"].dtype))))
         for i in range(B):
             results[i].cost = INF if int(best[i]) >= int(DEV_INF) // 2 else int(best[i])
             results[i].rounds = int(rounds[i])
+            results[i].kdelta_stop = bool(kd[i])
         self._keep_fused_fields(results, out["M_all"], out["R_all"], out["E_all"],
                                 to_host(out["np_cnt"]), to_host(out["nr_cnt"]))
         return results
@@ -774,7 +789,7 @@ class BatchedTSAligner:
 
         if self.keep_fields:
             keep_primary(M_dev, E_host)
-        delta = min_tsm_cost_bound(self.config)
+        stop = self._stop_deltas()
         root_dev = seeds
 
         done = [False] * B
@@ -790,10 +805,9 @@ class BatchedTSAligner:
             for i in range(B):
                 if done[i]:
                     continue
-                # Exact early stop: a further improvement needs a path with
-                # k template switches, costing at least k * delta.
-                if delta > 0 and k * delta > best[i]:
+                if kdelta_stop(k, stop[i], best[i]):
                     done[i], results[i].rounds = True, k
+                    results[i].kdelta_stop = True
                 # TSLB improvement stop.
                 elif not self._can_improve_pair(i, E_host[i], best[i]):
                     done[i], results[i].rounds = True, k
@@ -1025,23 +1039,14 @@ def _align_pairs(config, pairs, names, maximise_total_length, chunk, *, device, 
         return out
 
     duration = _time.monotonic() - t0
-    # Post-hoc K check per pair (aligner._run_engine semantics): with
-    # rewinding reentries total TS length is only bounded by
-    # (rounds-1) * l_max; pairs where that bound reaches K re-run through
-    # the single-pair guarded path (which escalates K exactly).
-    rewind = config.can_rewind()
-    lw = config.length_costs.maximum_finite_input()
+    # Post-hoc K check per pair (aligner._run_engine's proof): with
+    # rewinding reentries a record is the lexicographic optimum where its
+    # own total TS length is below K; the others re-run through the
+    # single-pair guarded path (which escalates K exactly).
     redo: List[int] = []
-    if K > 1 and rewind:
-        for i, (comp, _aln) in enumerate(traced):
-            if comp >= INF:
-                continue
-            lr, lq = len(enc[i][0]), len(enc[i][1])
-            l_max_eff = min(int(lw) if lw is not None else max(lr, lq, 1),
-                            max(lr, lq, 1))
-            rounds = bt.last_results[i].rounds
-            if max(0, rounds - 1) * l_max_eff >= K:
-                redo.append(i)
+    if K > 1 and config.can_rewind():
+        redo = [i for i, (comp, aln) in enumerate(traced)
+                if comp < INF and aln.ts_total_length() >= K]
     if redo:
         a = Aligner(costs=config, device=device, fused=fused)
         for i in redo:

@@ -134,16 +134,19 @@ def _reentry_all_kinds(bt, A_delta, live, k: int):
 def fused_loop(bt, data: dict, meta: dict) -> dict:
     """Rounds 1..max_rounds of the lockstep batch (``_fused_loop``), the
     state of every pair on the device.  `data`: the device tensors (root
-    seeds, sweep tables, S32 / has_lb, limits, E0, best0, M0); `meta`: delta,
-    slack, max_rounds, keep, L, R.  Returns done, best, rounds, np_cnt,
-    nr_cnt (device tensors) and the kept rounds' M, R and E lists."""
+    seeds, sweep tables, S32 / has_lb, limits, E0, best0, M0); `meta`: delta
+    (the pruning's), stop (each pair's k * delta stop value, a device
+    tensor), slack, max_rounds, keep, L, R.  Returns done, best, rounds,
+    kdelta (the pairs the k * delta stop ended), np_cnt, nr_cnt (device
+    tensors) and the kept rounds' M, R and E lists."""
+    from ..numpy_engine import kdelta_stop
     from .batch_ts import _seeds_batch, _sweep_batch
 
     dev = bt.device
     B = bt.n_pairs
     root, S32, has_lb = data["root"], data["S32"], data["has_lb"]
     lr, lq = data["lr"], data["lq"]
-    delta, keep = meta["delta"], meta["keep"]
+    delta, stop, keep = meta["delta"], meta["stop"], meta["keep"]
     prune = dict(slack=meta["slack"], delta_pos=max(0, delta))
     Rr, Q = bt.nr + 1, bt.nq + 1
     done = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -151,14 +154,16 @@ def fused_loop(bt, data: dict, meta: dict) -> dict:
     A_launched = full_inf((B, Rr, Q), dev)
     R_acc = full_inf((B, Rr, Q), dev)
     rounds = torch.zeros(B, dtype=torch.int32, device=dev)
+    kdelta = torch.zeros_like(done)
     np_cnt = torch.ones(B, dtype=torch.int32, device=dev)
     nr_cnt = torch.zeros(B, dtype=torch.int32, device=dev)
     M_all, R_all, E_all = [data["M0"]], [], [E]
     one = torch.ones_like(np_cnt)
     for k in range(1, meta["max_rounds"] + 1):
         # top-of-round exact stops (k * delta bound, TSLB improvement test)
-        d1 = (best < k * delta) if delta > 0 else torch.zeros_like(done)
+        d1 = kdelta_stop(k, stop, best)
         newly = ~done & (d1 | ~_can_improve(E, S32, has_lb, best))
+        kdelta = kdelta | (newly & d1)
         rounds = torch.where(newly, k, rounds)
         done = done | newly
         A = _pruned(E, S32, has_lb, best, **prune)
@@ -198,5 +203,5 @@ def fused_loop(bt, data: dict, meta: dict) -> dict:
         rounds = torch.where(newly2, k + 1, rounds)
         done = done | newly2
         best, E = new_best, E2
-    return dict(done=done, best=best, rounds=rounds, np_cnt=np_cnt, nr_cnt=nr_cnt,
+    return dict(done=done, best=best, rounds=rounds, kdelta=kdelta, np_cnt=np_cnt, nr_cnt=nr_cnt,
                 M_all=M_all, R_all=R_all, E_all=E_all)
