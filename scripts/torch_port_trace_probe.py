@@ -12,8 +12,10 @@ the cell's pairs (``portbench/harness`` makes them, and sets the threads, as
 the benchmark does; nothing of it is changed), after the benchmark's
 warm-up, with ``tsalign_tpu_torch.tracing`` on and, on the card,
 torch.profiler recording the card's work.  It prints one JSON line: a pair,
-the counters (device reads, KiB up and down, engine passes, rounds, and the
-rounds loops that the k * delta stop ended) and the seconds in device reads
+the counters (device reads, KiB up and down, engine passes, rounds, the
+rounds loops that the k * delta stop ended, and the traceback's template
+switches explained, candidates priced and hits its forward column did not
+confirm) and the seconds in device reads
 (`device.read`), in the engine's tables and root seeds (`engine.tables`,
 `engine.seeds`) and in the traceback's own walk (`traceback.trace` less its
 children, which are its row-block reads and its module DPs); the spans a
@@ -43,7 +45,9 @@ from harness import cells, host  # noqa: E402  (neither imports torch)
 SPAN_SHARES = {"read_wait_s": ("device.read",), "engine_prep_s": ("engine.tables", "engine.seeds")}
 OWN_IDLE = ("rounds.align", "facade.align", "facade.engine_pass")
 COUNTS = {"engine_passes": "facade.engine_passes", "rounds": "rounds.rounds",
-          "kdelta_stops": "rounds.kdelta_stops"}
+          "kdelta_stops": "rounds.kdelta_stops", "tsm_reconstructs": "traceback.tsm_reconstructs",
+          "tsm_candidates": "traceback.tsm_candidates",
+          "tsm_confirm_misses": "traceback.tsm_confirm_misses"}
 
 
 def window(spec, seed, seconds, device):

@@ -7,9 +7,10 @@ spans of one call share its id and nest inside their parents, a no-TS pair
 records exactly the no-TS set of spans, a TS pair adds the reentry of each
 round and kind and the traceback's module DPs, the engine-pass spans equal
 the benchmark harness's count of passes, each call counts its engine passes,
-its rounds and the rounds loops the k * delta stop ended, crossings on the
-CPU count nothing, and the command line's ``--profile`` trace shows the
-program's spans.
+its rounds and the rounds loops the k * delta stop ended, the traceback
+counts the template switches it explains and the candidates it priced,
+crossings on the CPU count nothing, and the command line's ``--profile``
+trace shows the program's spans.
 
 Marked `cuda` (this file imports no JAX, so they run on a machine with a
 card): a 160 x 159 no-TS pair's reads and bytes are the ones its shapes
@@ -211,6 +212,25 @@ def test_rounds_and_passes_are_counted_on_the_witness(fused):
     assert _passes(counts) == [
         {"facade.engine_passes": 1, "rounds.rounds": 3, "rounds.kdelta_stops": 0},
         {"facade.engine_passes": 1, "rounds.rounds": 1, "rounds.kdelta_stops": 1}]
+
+
+TSM_COUNTS = ("traceback.tsm_reconstructs", "traceback.tsm_candidates",
+              "traceback.tsm_confirm_misses")
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_the_tsm_search_is_counted_on_the_witness(traced, fused):
+    """The traceback explains each of the witness's two template switches
+    once, prices at least one candidate for each, and the forward column
+    confirms the first hit every time; a no-TS record counts none of it."""
+    res = tsalign_tpu_torch.align(*WITNESS, device="cpu", fused=fused)
+    tsalign_tpu_torch.align(*WITNESS, device="cpu", no_ts=True)
+    _, counts = tracing.take()
+    ts, nots = ({k: per.get(k, 0) for k in TSM_COUNTS} for per in counts.values())
+    assert ts["traceback.tsm_reconstructs"] == res.stats()["template_switch_amount"] == 2
+    assert ts["traceback.tsm_candidates"] >= 2
+    assert ts["traceback.tsm_confirm_misses"] == 0
+    assert nots == dict.fromkeys(TSM_COUNTS, 0)
 
 
 def test_align_pairs_is_one_call(traced):

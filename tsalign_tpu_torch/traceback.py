@@ -36,8 +36,24 @@ _PK = ("Reference", "Query")
 _DK = ("Forward", "Reverse")
 
 
+# Elements of one gather of candidate windows (`_ExitModule.price_many`).
+_PRICE_CELLS = 1 << 20
+# Costs capped for the gathered prices' plain add (`_ExitModule.price_many`).
+_CAP = 1 << 40
+
+
 def _eval(fn, x: int) -> int:
+    """fn(x), INF below the first point's input (the rule `_cost_table`
+    tabulates)."""
     return fn.evaluate(x) if x >= fn.points[0][0] else INF
+
+
+def _cost_table(fn, lo: int, hi: int) -> np.ndarray:
+    """`_eval(fn, x)` for every integer x in [lo, hi], as one int64 array."""
+    inputs = np.array([x for x, _ in fn.points], dtype=np.int64)
+    costs = np.array([c for _, c in fn.points], dtype=np.int64)
+    k = np.searchsorted(inputs, np.arange(lo, hi + 1), side="right") - 1
+    return np.where(k >= 0, costs[np.maximum(k, 0)], INF)
 
 
 class _ModuleColumn:
@@ -310,6 +326,14 @@ class _ExitModule:
             U = close_adj(R)
             RN[m] = U[0]
         self.RN = RN
+        fin = np.flatnonzero((spec.seed < INF).any(axis=0))
+        c0, c1 = (int(fin[0]), int(fin[-1]) + 1) if len(fin) else (0, 0)
+        self._band = (
+            c0,
+            np.lib.stride_tricks.sliding_window_view(np.minimum(RN, _CAP), c1 - c0, axis=1)
+            if c1 > c0 else None,
+            np.minimum(spec.seed[:, c0:c1], _CAP),
+        )
 
     def price(self, l: int, b: int) -> int:
         """B[l] of the forward column (p1 = p2 - l, b), in O(W)."""
@@ -322,6 +346,22 @@ class _ExitModule:
             return int(INF)
         v = _sat(seed, window).min()
         return int(v)
+
+    def price_many(self, l: np.ndarray, b: np.ndarray) -> np.ndarray:
+        """`price` of every (l[k], b[k]) at once, a window cut short at RN's
+        end INF as there.  Only the offsets where some seed is finite can
+        reach the minimum, so each window is gathered over that band alone,
+        as (K, band) views of RN and the seed table capped at `_CAP`: one
+        add and one row minimum, and a minimum at or above `_CAP / 2` (an
+        INF term; finite costs stay far below it) is INF."""
+        c0, windows, seed = self._band
+        if windows is None:
+            return np.full(len(l), INF, dtype=np.int64)
+        base = b + self.base_off - self.a_lo
+        ok = (l <= self.L) & (base + self.W <= self.RN.shape[1])
+        start = np.minimum(base + c0, windows.shape[1] - 1)
+        v = (windows[np.minimum(l, self.L), start] + seed[b]).min(axis=1)
+        return np.where(ok & (v < _CAP // 2), v, INF)
 
 
 def _chain_to_go(Rd: np.ndarray, ext: np.ndarray, d: int) -> np.ndarray:
@@ -389,6 +429,7 @@ class TracebackEngine:
         self.F = self.L + self.R + 1
         self._specs: Dict[Tuple[int, int, int], Optional[KindSpec]] = {}
         self._columns: Dict[Tuple[int, int, int, int, int], _ModuleColumn] = {}
+        self._cost_tabs: Dict[Tuple[int, int, int], tuple] = {}
 
     # -- primary transitions (reverse) -------------------------------------
 
@@ -484,18 +525,47 @@ class TracebackEngine:
                 )
         return self._exit_modules[key]
 
+    def _cost_tables(self, min_len: int, d_lo: int, d_hi: int):
+        """(lc, dc, ac): the length, length-difference and per-direction
+        anti-primary-gap costs at every integer a candidate grid reads, by
+        `_eval`'s rule, indexed from l = min_len, ldiff = d_lo and
+        ag = min_len + d_lo.  Built once an engine: the config is fixed."""
+        key = (min_len, d_lo, d_hi)
+        if key not in self._cost_tabs:
+            cfg = self.config
+            n = max(self.n_r, self.n_q)  # l <= p2 <= n
+            self._cost_tabs[key] = (
+                _cost_table(cfg.length_costs, min_len, n),
+                _cost_table(cfg.length_difference_costs, d_lo, d_hi),
+                tuple(
+                    _cost_table(cfg.anti_primary_gap_costs(_DK[dk]), min_len + d_lo, n + d_hi)
+                    for dk in (0, 1)
+                ),
+            )
+        return self._cost_tabs[key]
+
     def _reconstruct_tsm(self, i, j, v, A_cells):
+        """The template switch whose reentry seeds cell (i, j) at value v.
+
+        Each kind's candidates (l, ldiff) form one grid, masked and priced
+        as arrays (`_ExitModule.price_many`); the hits are confirmed in the
+        order (pk, sk, dk, l, ldiff), and the first one the forward column
+        confirms is the answer."""
         cfg = self.config
-        length_fn, ldiff_fn = cfg.length_costs, cfg.length_difference_costs
-        dw = ldiff_fn.finite_window()
+        dw = cfg.length_difference_costs.finite_window()
         if dw is None:
             raise RuntimeError("traceback: reentry with no finite ldiff")
         span = 2 * max(self.n_r, self.n_q) + 2
         d_lo, d_hi = max(int(dw[0]), -span), min(int(dw[1]), span)
+        ldiff = np.arange(d_lo, d_hi + 1)
+        tracing.count("traceback.tsm_reconstructs")
         for pk in self.allowed_primaries:
             A_mod = A_cells if pk == 0 else A_cells.T
             anti_lo, anti_hi = self.anti_bounds[pk]
             p2, j2 = (i, j) if pk == 0 else (j, i)
+            d_ok = ~((ldiff > 0) & (p2 + ldiff > anti_hi)) & ~(
+                (ldiff < 0) & (p2 + ldiff < anti_lo)
+            )
             for sk in (0, 1):
                 for dk in (0, 1):
                     spec = self._spec(pk, sk, dk)
@@ -506,57 +576,66 @@ class TracebackEngine:
                     # (template_switch_distance.rs:600-618)
                     if not (0 <= j2 < spec.n_anti_real):
                         continue
-                    anti_fn = cfg.anti_primary_gap_costs(_DK[dk])
+                    lc_t, dc_t, ac_t = self._cost_tables(spec.min_len, d_lo, d_hi)
+                    ls = np.arange(spec.min_len, min(spec.l_max, p2) + 1)
+                    lc = lc_t[ls - spec.min_len]
+                    ag = ls[:, None] + ldiff[None, :]
+                    ac = ac_t[dk][ag - spec.min_len - d_lo]
+                    e_anti = j2 - ag
+                    ok = (
+                        (lc < INF)[:, None]
+                        & (d_ok & (dc_t < INF))[None, :]
+                        & (ac < INF)
+                        & (e_anti >= 0)
+                        & (e_anti <= spec.n_anti)
+                    )
+                    li, di = np.nonzero(ok)  # row-major: the (l, ldiff) order
+                    l, d, ea = ls[li], ldiff[di], e_anti[li, di]
+                    p1 = p2 - l
+                    a = A_mod[p1, ea]
+                    rem = v - a - lc[li] - dc_t[di] - ac[li, di]
+                    # The secondary length bonus can push module costs below
+                    # zero by at most l per module.
+                    slack = cfg.secondary_length_bonus * spec.l_max
+                    keep = np.flatnonzero((a < INF) & (rem >= -slack))
+                    if len(keep) == 0:
+                        continue
+                    tracing.count("traceback.tsm_candidates", len(keep))
+                    l, d, p1, ea = l[keep], d[keep], p1[keep], ea[keep]
+                    a, rem = a[keep], rem[keep]
+                    b = p1 if spec.same_seq else ea
+                    # Exact O(W) prices from the shared exit-anchored DP; the
+                    # full forward column is built only for a hit (its level
+                    # tables drive the backtrack).
                     em = self._exit_module(pk, sk, dk, spec, p2)
-                    for l in range(spec.min_len, min(spec.l_max, p2) + 1):
-                        lc = _eval(length_fn, l)
-                        if lc >= INF:
-                            continue
-                        p1 = p2 - l
-                        for ldiff in range(d_lo, d_hi + 1):
-                            if ldiff > 0 and p2 + ldiff > anti_hi:
+                    if spec.same_seq:  # b = p1 = p2 - l: one price a length
+                        chunks = [(0, em.price_many(ls, p2 - ls)[li[keep]])]
+                    else:
+                        step = max(1, _PRICE_CELLS // em.W)
+                        chunks = (
+                            (k0, em.price_many(l[k0 : k0 + step], b[k0 : k0 + step]))
+                            for k0 in range(0, len(l), step)
+                        )
+                    for k0, price in chunks:
+                        for k in k0 + np.flatnonzero(price == rem[k0 : k0 + len(price)]):
+                            lk, rk = int(l[k]), int(rem[k])
+                            col = self._column(pk, sk, dk, spec, int(p1[k]), int(b[k]))
+                            if col.B[lk] != rk:
+                                tracing.count("traceback.tsm_confirm_misses")
                                 continue
-                            if ldiff < 0 and p2 + ldiff < anti_lo:
-                                continue
-                            ag = l + ldiff
-                            dc = _eval(ldiff_fn, ldiff)
-                            ac = _eval(anti_fn, ag)
-                            if dc >= INF or ac >= INF:
-                                continue
-                            e_anti = j2 - ag
-                            if not (0 <= e_anti <= spec.n_anti):
-                                continue
-                            a = int(A_mod[p1, e_anti])
-                            if a >= INF:
-                                continue
-                            rem = v - a - lc - dc - ac
-                            # The secondary length bonus can push module
-                            # costs below zero by at most l per module.
-                            slack = self.config.secondary_length_bonus * spec.l_max
-                            if rem < -slack:
-                                continue
-                            b = p1 if spec.same_seq else e_anti
-                            # Exact O(W) candidate price from the shared
-                            # exit-anchored DP; the full forward column is
-                            # built only for the hit (its level tables
-                            # drive the backtrack).
-                            if em.price(l, b) != rem:
-                                continue
-                            col = self._column(pk, sk, dk, spec, p1, b)
-                            if col.B[l] == rem:
-                                fo, sec_ops = col.backtrack(l, rem)
-                                return {
-                                    "pk": pk,
-                                    "sk": sk,
-                                    "dk": dk,
-                                    "p1": p1,
-                                    "e_anti": e_anti,
-                                    "l": l,
-                                    "ag": ag,
-                                    "fo": fo,
-                                    "sec_ops": sec_ops,
-                                    "entry_cost": a,
-                                }
+                            fo, sec_ops = col.backtrack(lk, rk)
+                            return {
+                                "pk": pk,
+                                "sk": sk,
+                                "dk": dk,
+                                "p1": int(p1[k]),
+                                "e_anti": int(ea[k]),
+                                "l": lk,
+                                "ag": lk + int(d[k]),
+                                "fo": fo,
+                                "sec_ops": sec_ops,
+                                "entry_cost": int(a[k]),
+                            }
         raise RuntimeError(f"traceback: no TSM explains reentry at ({i},{j}) = {v}")
 
     def _tsm_edges(self, tsm) -> List[object]:
